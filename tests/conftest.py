@@ -57,7 +57,7 @@ def pytest_collection_modifyitems(items):
         mod = item.nodeid.split("::")[0].rsplit("/", 1)[-1]
         mod = mod[:-3] if mod.endswith(".py") else mod
         item.add_marker(
-            pytest.mark.fast if mod in _FAST_MODULES else pytest.mark.slow
+            pytest.mark.fast if mod in _FAST_MODULES or mod.startswith("test_torch_") else pytest.mark.slow
         )
 
 
