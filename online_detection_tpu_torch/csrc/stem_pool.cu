@@ -9,20 +9,23 @@
 // What bounds it on an H100: operations, on CUDA cores. The conv is
 // 2*147*64 FLOP per conv output (18 GFLOP per batch of 8 at 608x800)
 // against ~12 MB of input and ~31 MB of output. A 3-channel contraction
-// leaves a tensor-core tile almost empty, so this first version runs fp32
-// FMA: bf16 products are exact in fp32, so it accumulates exactly what the
-// TPU's MXU did (bf16 inputs, fp32 accumulation).
+// leaves a tensor-core tile almost empty, so this version runs fp32 FMA:
+// bf16 products are exact in fp32, so it accumulates exactly what the TPU's
+// MXU did (bf16 inputs, fp32 accumulation). The FMA operands come from
+// shared memory, so shared loads per FMA set the rate: one thread per
+// (channel, position) needs two loads per FMA, an eighth of the FMA rate.
 //
 // Design: the Pallas kernel holds a whole padded image in VMEM; that does
 // not fit 227 KB of shared memory, so each block takes a tile of TPH x TPW
 // pooled outputs. It stages the (4*TPH+7) x (4*TPW+7) x 3 input patch and
-// the 7x7x3x64 weights in shared memory (fp32), computes the
+// the 7x7x3x64 weights (HWIO) in shared memory (fp32), computes the
 // (2*TPH+1) x (2*TPW+1) x 64 conv outputs the pool needs (a one-row and
 // one-column halo shared with the neighbouring tiles), applies scale, bias
 // and ReLU in fp32 and keeps them in shared memory, then takes the 3x3/2
-// max. Threads run along the 64 output channels, so weight reads are
-// consecutive and input reads are broadcasts. Conv positions outside the
-// conv map hold 0: the pool's zero padding is exact because ReLU >= 0.
+// max. In the conv each thread owns 4 channels (one float4 of weights per
+// tap) and PPT positions 16 apart, so a tap costs it 1 + PPT shared loads
+// for 4 * PPT FMAs. Conv positions outside the conv map hold 0: the pool's
+// zero padding is exact because ReLU >= 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,9 +42,13 @@ constexpr int CW = 2 * TPW + 1;  // conv cols per block
 constexpr int IH = 2 * (CH - 1) + K;  // input rows per block
 constexpr int IW = 2 * (CW - 1) + K;  // input cols per block
 constexpr int THREADS = 256;
+constexpr int GROUPS = COUT / 4;                 // channel groups of 4 (one float4)
+constexpr int LANES = THREADS / GROUPS;          // position lanes
+constexpr int PPT = (CH * CW + LANES - 1) / LANES;  // conv positions per thread
+constexpr int XS_FLOATS = (IH * IW * CIN + 3) / 4 * 4;  // keeps cs 16-byte aligned
 
 constexpr size_t SMEM_BYTES =
-    sizeof(float) * (K * K * CIN * COUT + IH * IW * CIN + CH * CW * COUT);
+    sizeof(float) * (K * K * CIN * COUT + XS_FLOATS + CH * CW * COUT);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -56,10 +63,10 @@ __global__ void __launch_bounds__(THREADS)
 stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ scale, const float* __restrict__ bias,
             T* __restrict__ out, int h, int wd, int h2, int w2, int h4, int w4) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* ws = smem;                         // [K][K][CIN][COUT]
   float* xs = ws + K * K * CIN * COUT;      // [IH][IW][CIN]
-  float* cs = xs + IH * IW * CIN;           // [CH][CW][COUT]
+  float* cs = xs + XS_FLOATS;               // [CH][CW][COUT]
 
   const int b = blockIdx.z;
   const int ph0 = blockIdx.y * TPH;
@@ -70,14 +77,7 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int ix0 = 2 * cx0 - 3;
   const int tid = threadIdx.x;
 
-  // w arrives OIHW [COUT][CIN][K][K]; staged as [K][K][CIN][COUT]
-  for (int i = tid; i < K * K * CIN * COUT; i += THREADS) {
-    const int o = i / (CIN * K * K);
-    const int ci = (i / (K * K)) % CIN;
-    const int ky = (i / K) % K;
-    const int kx = i % K;
-    ws[((ky * K + kx) * CIN + ci) * COUT + o] = w[i];
-  }
+  for (int i = tid; i < K * K * CIN * COUT; i += THREADS) ws[i] = w[i];
   const T* xb = x + (long long)b * h * wd * CIN;
   for (int i = tid; i < IH * IW * CIN; i += THREADS) {
     const int ci = i % CIN;
@@ -90,30 +90,59 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
   __syncthreads();
 
-  const int o = tid % COUT;
-  const float sc = scale[o];
-  const float bi = bias[o];
-  for (int p = tid / COUT; p < CH * CW; p += THREADS / COUT) {
-    const int ly = p / CW, lx = p % CW;
-    const int gy = cy0 + ly, gx = cx0 + lx;
-    float val = 0.f;  // outside the conv map: the pool's zero padding
-    if (gy >= 0 && gy < h2 && gx >= 0 && gx < w2) {
-      float acc = 0.f;
-      const float* xp = xs + (2 * ly * IW + 2 * lx) * CIN;
+  const int grp = tid % GROUPS;  // channels 4*grp .. 4*grp+3
+  const int lane = tid / GROUPS;  // positions lane, lane + LANES, ...
+  int xoff[PPT];
 #pragma unroll
-      for (int ky = 0; ky < K; ++ky)
+  for (int j = 0; j < PPT; ++j) {
+    const int p = min(lane + LANES * j, CH * CW - 1);  // spare slots recompute the last one
+    xoff[j] = (2 * (p / CW) * IW + 2 * (p % CW)) * CIN;
+  }
+  float acc[PPT][4];
 #pragma unroll
-        for (int kx = 0; kx < K; ++kx)
+  for (int j = 0; j < PPT; ++j)
 #pragma unroll
-          for (int ci = 0; ci < CIN; ++ci)
-            acc = fmaf(xp[(ky * IW + kx) * CIN + ci],
-                       ws[((ky * K + kx) * CIN + ci) * COUT + o], acc);
-      val = fmaxf(acc * sc + bi, 0.f);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+  for (int ky = 0; ky < K; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < K; ++kx)
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) {
+        const float4 wv = *reinterpret_cast<const float4*>(
+            ws + ((ky * K + kx) * CIN + ci) * COUT + 4 * grp);
+        const int tap = (ky * IW + kx) * CIN + ci;
+#pragma unroll
+        for (int j = 0; j < PPT; ++j) {
+          const float xv = xs[xoff[j] + tap];
+          acc[j][0] = fmaf(xv, wv.x, acc[j][0]);
+          acc[j][1] = fmaf(xv, wv.y, acc[j][1]);
+          acc[j][2] = fmaf(xv, wv.z, acc[j][2]);
+          acc[j][3] = fmaf(xv, wv.w, acc[j][3]);
+        }
+      }
+  }
+  float sc[4], bi[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sc[e] = scale[4 * grp + e];
+    bi[e] = bias[4 * grp + e];
+  }
+#pragma unroll
+  for (int j = 0; j < PPT; ++j) {
+    const int p = lane + LANES * j;
+    if (p < CH * CW) {
+      const int gy = cy0 + p / CW, gx = cx0 + p % CW;
+      const bool inside = gy >= 0 && gy < h2 && gx >= 0 && gx < w2;
+      float v[4];  // outside the conv map: the pool's zero padding
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = inside ? fmaxf(acc[j][e] * sc[e] + bi[e], 0.f) : 0.f;
+      *reinterpret_cast<float4*>(cs + p * COUT + 4 * grp) = make_float4(v[0], v[1], v[2], v[3]);
     }
-    cs[p * COUT + o] = val;
   }
   __syncthreads();
 
+  const int o = tid % COUT;
   T* ob = out + (long long)b * h4 * w4 * COUT;
   for (int p = tid / COUT; p < TPH * TPW; p += THREADS / COUT) {
     const int ly = p / TPW, lx = p % TPW;
@@ -146,8 +175,8 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, vo
 
 }  // namespace
 
-// x: [b, h, wd, 3] NHWC, float32 (dtype 0) or bfloat16 (dtype 1); w: [64, 3, 7, 7]
-// OIHW fp32 (already rounded to x's dtype by the caller); scale, bias: [64] fp32;
+// x: [b, h, wd, 3] NHWC, float32 (dtype 0) or bfloat16 (dtype 1); w: [7, 7, 3, 64]
+// HWIO fp32 (already rounded to x's dtype by the caller); scale, bias: [64] fp32;
 // out: [b, h4, w4, 64] in x's dtype, h4 = ceil(ceil(h/2)/2) (same for w4).
 extern "C" int odt_stem_fused(const void* x, const void* w, const void* scale,
                               const void* bias, void* out, int b, int h, int wd,

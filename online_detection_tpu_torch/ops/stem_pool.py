@@ -50,7 +50,7 @@ def _stem_cuda(x, w, scale, bias):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     x = x.contiguous()
-    wk = w.to(x.dtype).float().contiguous()
+    wk = w.to(x.dtype).float().permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     h4, w4 = pooled_size(h, wd)
