@@ -53,8 +53,8 @@ __device__ __forceinline__ int owned(int lane16, int i) {
 }
 
 // Loads a [BN rows, BK] chunk of a row-major [rows, d] operand into
-// registers; rows past `rows` and features past `d` read as 0.
-template <bool VEC>
+// registers; rows past `rows` read as 0. d % 4 == 0 and 16-byte aligned rows
+// (checked by the entry point), so a float4 is all in or all out.
 __device__ __forceinline__ void load_chunk(const float* __restrict__ src, int rows, int d,
                                            int k0, int tid, float4 (&buf)[LOADS]) {
 #pragma unroll
@@ -62,15 +62,9 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ src, int ro
     const int idx = tid + q * THREADS;
     const int r = idx >> 2;
     const int k = k0 + (idx & 3) * 4;
-    const float* p = src + (long long)r * d + k;
-    if (VEC) {  // d % 4 == 0 and 16-byte aligned rows: a float4 is all in or all out
-      buf[q] = (r < rows && k < d) ? *reinterpret_cast<const float4*>(p)
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      const bool row = r < rows;
-      buf[q] = make_float4(row && k < d ? p[0] : 0.f, row && k + 1 < d ? p[1] : 0.f,
-                           row && k + 2 < d ? p[2] : 0.f, row && k + 3 < d ? p[3] : 0.f);
-    }
+    buf[q] = (r < rows && k < d)
+                 ? *reinterpret_cast<const float4*>(src + (long long)r * d + k)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -88,7 +82,6 @@ __device__ __forceinline__ void store_chunk(float (*dst)[LD], int tid,
   }
 }
 
-template <bool VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 mmv_grouped_kernel(const float* __restrict__ x, long long x_gstride,
                    const float* __restrict__ xs, long long xs_gstride,
@@ -125,8 +118,8 @@ mmv_grouped_kernel(const float* __restrict__ x, long long x_gstride,
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    load_chunk<VEC>(xg, n_rows, d, 0, tid, xb);
-    load_chunk<VEC>(ct, m - m0, d, 0, tid, cb);
+    load_chunk(xg, n_rows, d, 0, tid, xb);
+    load_chunk(ct, m - m0, d, 0, tid, cb);
     store_chunk(Xs[0], tid, xb);
     store_chunk(Cs[0], tid, cb);
     __syncthreads();
@@ -135,8 +128,8 @@ mmv_grouped_kernel(const float* __restrict__ x, long long x_gstride,
     for (int k0 = 0; k0 < d; k0 += BK) {
       const bool more = k0 + BK < d;
       if (more) {  // next chunk's loads overlap this chunk's FMAs
-        load_chunk<VEC>(xg, n_rows, d, k0 + BK, tid, xb);
-        load_chunk<VEC>(ct, m - m0, d, k0 + BK, tid, cb);
+        load_chunk(xg, n_rows, d, k0 + BK, tid, xb);
+        load_chunk(ct, m - m0, d, k0 + BK, tid, cb);
       }
 #pragma unroll
       for (int k = 0; k < BK; ++k) {
@@ -200,24 +193,20 @@ mmv_grouped_kernel(const float* __restrict__ x, long long x_gstride,
 
 // x: [G or 1, n, d] (x_gstride = n*d or 0), xs: its squared row norms with
 // stride xs_gstride, c: [S, m, d], cs: [S, m], v: [S, m], set_idx: [G],
-// out: [G, n]. All fp32 and contiguous; launches on `stream`.
+// out: [G, n]. All fp32 and contiguous, d % 4 == 0, x and c 16-byte aligned
+// (else cudaErrorInvalidValue); launches on `stream`.
 extern "C" int odt_mmv_grouped(const void* x, long long x_gstride, const void* xs,
                                long long xs_gstride, const void* c, const void* cs,
                                const void* v, const void* set_idx, void* out, int groups,
                                int n, int m, int d, float sigma, void* stream) {
-  if (groups < 1 || groups > 65535 || n < 1 || m < 1 || d < 1)
+  if (groups < 1 || groups > 65535 || n < 1 || m < 1 || d < 1 || d % 4 != 0 ||
+      x_gstride % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(c) % 16 == 0 && x_gstride % 4 == 0;
   const dim3 grid((n + BN - 1) / BN, groups);
-  const float two_s2 = 2.f * sigma * sigma;
-  if (vec)
-    mmv_grouped_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, x_gstride, (const float*)xs, xs_gstride, (const float*)c,
-        (const float*)cs, (const float*)v, (const int*)set_idx, (float*)out, n, m, d, two_s2);
-  else
-    mmv_grouped_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, x_gstride, (const float*)xs, xs_gstride, (const float*)c,
-        (const float*)cs, (const float*)v, (const int*)set_idx, (float*)out, n, m, d, two_s2);
+  mmv_grouped_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, x_gstride, (const float*)xs, xs_gstride, (const float*)c,
+      (const float*)cs, (const float*)v, (const int*)set_idx, (float*)out, n, m, d,
+      2.f * sigma * sigma);
   return (int)cudaGetLastError();
 }

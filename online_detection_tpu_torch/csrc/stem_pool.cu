@@ -6,14 +6,17 @@
 // [B, H/2, W/2, 64] conv activation (125 MB per batch of 8 canvases of
 // 608x800 in bf16) never reaches device memory.
 //
-// What bounds it on an H100: operations, on CUDA cores. The conv is
-// 2*147*64 FLOP per conv output (18 GFLOP per batch of 8 at 608x800)
-// against ~12 MB of input and ~31 MB of output. A 3-channel contraction
-// leaves a tensor-core tile almost empty, so this version runs fp32 FMA:
-// bf16 products are exact in fp32, so it accumulates exactly what the TPU's
-// MXU did (bf16 inputs, fp32 accumulation). The FMA operands come from
-// shared memory, so shared loads per FMA set the rate: one thread per
-// (channel, position) needs two loads per FMA, an eighth of the FMA rate.
+// What bounds it on an H100: the conv is 2*147*64 FLOP per conv output
+// (18 GFLOP per batch of 8 at 608x800) against ~12 MB of input and ~31 MB
+// of output. As an implicit GEMM, [conv positions, 147] x [147, 64] with
+// K = 7*7*3 = 147, bf16 inputs and fp32 accumulation, it fits the tensor
+// cores: at their 989 TFLOP/s bf16 rate the card's bound is ~0.02 ms, set
+// about equally by operations and bytes. This first version does not reach
+// for that bound: it runs fp32 FMA on the CUDA cores (67 TFLOP/s, so at
+// best ~0.27 ms). bf16 products are exact in fp32, so it accumulates exactly
+// what the TPU's MXU did (bf16 inputs, fp32 accumulation). Its FMA operands
+// come from shared memory, so shared loads per FMA set its rate. A wgmma
+// implicit-GEMM version is later work.
 //
 // Design: the Pallas kernel holds a whole padded image in VMEM; that does
 // not fit 227 KB of shared memory, so each block takes a tile of TPH x TPW

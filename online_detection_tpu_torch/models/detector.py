@@ -13,9 +13,11 @@ on-line heads, res5) run on the batch flattened into rows. Each batch
 launches the stem kernel once, the Gaussian mmv kernel three times (RPN,
 detector, mask) and the RoIAlign kernel twice.
 
-On the card, float32 matmuls and convs run in IEEE fp32 (TF32 off): the
-head math (z-scoring, FALKON, RLS, box decode) must not lose digits. The
-conv trunk runs in ``compute_dtype`` (bf16 on the card by default).
+During ``detect_batched``, float32 matmuls and convs run in IEEE fp32 (TF32
+off, ``utils.device.ieee_fp32``; the caller's flags come back after the
+call): the head math (z-scoring, FALKON, RLS, box decode) must not lose
+digits. The conv trunk runs in ``compute_dtype`` (bf16 on the card by
+default).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from online_detection_tpu_torch.models.rpn import (
     rpn_pretrained,
 )
 from online_detection_tpu_torch.ops.roi_align import roi_align_batched
-from online_detection_tpu_torch.utils.device import resolve_device
+from online_detection_tpu_torch.utils.device import ieee_fp32, resolve_device
 
 
 class DetectorConfig(NamedTuple):
@@ -133,6 +135,7 @@ def _on(dev: torch.device, name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} is on {t.device}; move it to {dev} first")
 
 
+@ieee_fp32()
 @torch.inference_mode()
 def detect_batched(
     params: DetectorParams,
@@ -154,9 +157,6 @@ def detect_batched(
     already live there. With ``gt_boxes`` the detections are replaced by the
     ground truth before the mask head (the mask-quality protocol)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     _on(dev, "params", params.rpn.conv_w)
     _on(dev, "online models", online.detector.falkon.centers)
     anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
-from online_detection_tpu_torch.ops.nms import batched_class_nms, top_k
+from online_detection_tpu_torch.ops.nms import nms, top_k
 from online_detection_tpu_torch.utils import boxes as box_ops
 
 NEG_INF = -1e30
@@ -45,8 +45,8 @@ def postprocess_detections(
     keep = (per_class_scores > score_thresh) & proposals_valid[:, None, :]
     keep[:, 0] = False  # background is never kept
 
-    bx, sc, v, _ = batched_class_nms(per_class_boxes, per_class_scores, keep,
-                                     nms_thresh, per_class_cap)  # [B, C+1, cap, ...]
+    bx, sc, v, _ = nms(per_class_boxes, per_class_scores, keep,
+                       nms_thresh, per_class_cap)  # [B, C+1, cap, ...]
     flat_scores = torch.where(v, sc, torch.full_like(sc, NEG_INF)).reshape(b, -1)
     flat_boxes = bx.reshape(b, -1, 4)
     labels = torch.arange(n_cls, dtype=torch.int32, device=scores.device)

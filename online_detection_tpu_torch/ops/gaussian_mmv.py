@@ -58,8 +58,8 @@ def mmv_reference(
     set_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch grouped mmv. x: [N, d] shared by every group, or
-    [G, N, d]; centers [S, M, d]; v [S, M, t]; set_idx [G] (default: one
-    group per center set) -> [G, N, t]."""
+    [G, N, d]; centers [S, M, d]; v [S, M]; set_idx [G] (default: one group
+    per center set) -> [G, N]."""
     set_idx, g = _groups(x, centers, set_idx)
     idx = set_idx.long()
     n, m = x.shape[-2], centers.shape[1]
@@ -69,7 +69,7 @@ def mmv_reference(
         sel = idx[g0:g0 + chunk]
         xg = x if x.dim() == 2 else x[g0:g0 + chunk]
         k = gaussian_kernel(xg, centers[sel], sigma)  # [c, N, M]
-        outs.append(torch.matmul(k, v[sel]))
+        outs.append(torch.matmul(k, v[sel][..., None])[..., 0])
     return torch.cat(outs, dim=0)
 
 
@@ -82,16 +82,18 @@ def _mmv_cuda(x, centers, v, sigma, set_idx, g):
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     s, m, d = centers.shape
     n = x.shape[-2]
-    t_width = v.shape[-1]
-    if x.shape[-1] != d or v.shape[:2] != (s, m):
+    if x.shape[-1] != d or v.shape != (s, m):
         raise ValueError(f"shapes x {tuple(x.shape)} centers {tuple(centers.shape)} "
                          f"v {tuple(v.shape)} do not agree")
+    if d % 4:
+        raise ValueError(f"the mmv kernel takes a feature width divisible by 4, not {d}")
     x = x.contiguous()
     centers = centers.contiguous()
+    v = v.contiguous()
     set_idx = set_idx.to(torch.int32).contiguous()
     xs = _sq_norms(x).contiguous()
     cs = _sq_norms(centers).contiguous()
-    out = torch.empty((t_width, g, n), device=dev, dtype=torch.float32)
+    out = torch.empty((g, n), device=dev, dtype=torch.float32)
     fn = _build.load(_KERNEL).odt_mmv_grouped
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -101,17 +103,14 @@ def _mmv_cuda(x, centers, v, sigma, set_idx, g):
         ctypes.c_float, ctypes.c_void_p,
     ]
     shared = x.dim() == 2
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for k in range(t_width):  # the kernel takes one column of v (every caller has one)
-        vk = v[..., k].contiguous()
-        status = fn(
-            x.data_ptr(), 0 if shared else n * d, xs.data_ptr(), 0 if shared else n,
-            centers.data_ptr(), cs.data_ptr(), vk.data_ptr(), set_idx.data_ptr(),
-            out[k].data_ptr(), g, n, m, d, float(sigma), stream,
-        )
-        _build.check(status, "odt_mmv_grouped")
-        _build.LAUNCHES[_KERNEL] += 1
-    return out.permute(1, 2, 0)
+    status = fn(
+        x.data_ptr(), 0 if shared else n * d, xs.data_ptr(), 0 if shared else n,
+        centers.data_ptr(), cs.data_ptr(), v.data_ptr(), set_idx.data_ptr(),
+        out.data_ptr(), g, n, m, d, float(sigma), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "odt_mmv_grouped")
+    _build.LAUNCHES[_KERNEL] += 1
+    return out
 
 
 def mmv_grouped(
@@ -121,21 +120,14 @@ def mmv_grouped(
     sigma: float,
     set_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Grouped K(x, C_s) @ v_s (see ``mmv_reference`` for shapes; a 2-D
-    ``v`` [S, M] gives [G, N]). CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
-    squeeze = v.dim() == 2
-    if squeeze:
-        v = v[..., None]
+    """Grouped K(x, C_s) @ v_s -> [G, N] (see ``mmv_reference`` for shapes).
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
     set_idx, g = _groups(x, centers, set_idx)
     if x.is_cuda:
-        out = _mmv_cuda(x, centers, v, sigma, set_idx, g)
-    else:
-        out = mmv_reference(x, centers, v, sigma, set_idx)
-    return out[..., 0] if squeeze else out
+        return _mmv_cuda(x, centers, v, sigma, set_idx, g)
+    return mmv_reference(x, centers, v, sigma, set_idx)
 
 
 def mmv(x: torch.Tensor, c: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
-    """K(x, c) @ v for one center set: x [N, d], c [M, d], v [M] or [M, t]."""
-    out = mmv_grouped(x, c[None], v[None], sigma)
-    return out[0]
+    """K(x, c) @ v for one center set: x [N, d], c [M, d], v [M] -> [N]."""
+    return mmv_grouped(x, c[None], v[None], sigma)[0]

@@ -8,7 +8,8 @@ Greedy NMS is the unique fixpoint of
 iterated from ``suppressed = False`` over the boxes in descending score order
 (ties broken by original index). Each sweep is one masked [N, N] reduction;
 the loop ends at the first sweep that changes nothing. All functions take any
-leading batch axes, so one call runs every image's (and every class's) NMS.
+leading batch axes, so one call runs every image's (and every class's) NMS:
+``nms`` on [C, N, 4] boxes is the JAX package's ``batched_class_nms``.
 """
 
 from __future__ import annotations
@@ -76,8 +77,3 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     out_scores = torch.where(out_valid, top_scores, torch.full_like(top_scores, NEG_INF))
     return out_boxes, out_scores, out_valid, idx
 
-
-def batched_class_nms(boxes, scores, valid, iou_threshold: float, max_out: int):
-    """Per-class NMS over a leading class axis: boxes [C, N, 4] (any further
-    leading axes work the same way)."""
-    return nms(boxes, scores, valid, iou_threshold, max_out)

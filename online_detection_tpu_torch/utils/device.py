@@ -7,6 +7,8 @@ CPU explicitly (the tests do), or the call raises.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,16 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Float32 matmuls and convs run in IEEE fp32 (TF32 off) inside the block
+    (or the decorated call); the process's own flags come back after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

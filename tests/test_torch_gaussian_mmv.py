@@ -24,6 +24,15 @@ from online_detection_tpu_torch.solvers.falkon import FalkonModel, falkon_predic
 torch.set_num_threads(2)
 
 
+def _mmv_columns(x, c, v, sigma):
+    """The port's single-set ``mmv`` (v [M]) on each column of a v [M] or [M, t]."""
+    x, c = torch.from_numpy(x), torch.from_numpy(c)
+    if v.ndim == 1:
+        return mmv(x, c, torch.from_numpy(v), sigma).numpy()
+    return np.stack([mmv(x, c, torch.from_numpy(np.ascontiguousarray(v[:, k])), sigma).numpy()
+                     for k in range(v.shape[1])], axis=-1)
+
+
 def _bound(x, c, v, sigma):
     """1e-5 of sum |terms| per output, in float64."""
     x, c = x.astype(np.float64), c.astype(np.float64)
@@ -47,7 +56,7 @@ def _data(rng, n, m, d, t=None, s=None):
 def test_mmv_matches_mmv_xla(rng, n, m, d, t, sigma):
     x, c, v = _data(rng, n, m, d, t)
     want = np.asarray(mmv_xla(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), sigma))
-    got = mmv(torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(v), sigma).numpy()
+    got = _mmv_columns(x, c, v, sigma)
     assert got.shape == want.shape
     bound = _bound(x, c, v, sigma).reshape(want.shape)
     assert (np.abs(got - want) <= bound).all()
@@ -58,7 +67,7 @@ def test_mmv_matches_mmv_pallas_interpret(rng):
     sigma = 5.0
     want = np.asarray(mmv_pallas(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), sigma,
                                  tile_n=128, tile_m=128, interpret=True, bf16_dot=False))
-    got = mmv(torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(v), sigma).numpy()
+    got = _mmv_columns(x, c, v, sigma)
     assert (np.abs(got - want) <= _bound(x, c, v, sigma)).all()
 
 
@@ -87,9 +96,8 @@ def test_grouped_mmv_shared_and_per_group_x(rng):
     xg = rng.normal(size=(len(set_idx), 17, d)).astype(np.float32)
     got = mmv_grouped(torch.from_numpy(xg), torch.from_numpy(c), torch.from_numpy(v), sigma,
                       set_idx=torch.from_numpy(set_idx)).numpy()
-    ref = mmv_reference(torch.from_numpy(xg), torch.from_numpy(c),
-                        torch.from_numpy(v)[..., None], sigma,
-                        torch.from_numpy(set_idx)).numpy()[..., 0]
+    ref = mmv_reference(torch.from_numpy(xg), torch.from_numpy(c), torch.from_numpy(v), sigma,
+                        torch.from_numpy(set_idx)).numpy()
     np.testing.assert_array_equal(got, ref)
     for g, si in enumerate(set_idx):
         want = np.asarray(mmv_xla(jnp.asarray(xg[g]), jnp.asarray(c[si]),

@@ -85,6 +85,26 @@ def test_detect_batched_without_device_raises_before_running(monkeypatch):
     assert ran == []
 
 
+def test_detect_batched_scopes_the_tf32_flags(monkeypatch):
+    """The entry point runs with TF32 off and gives the caller's flags back,
+    also when it raises."""
+    from online_detection_tpu_torch.models import detector
+
+    seen = []
+
+    def record(device):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        raise RuntimeError("stop")
+
+    monkeypatch.setattr(detector, "resolve_device", record)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="stop"):
+        detector.detect_batched(None, None, None, None, None, device="cpu")
+    assert seen == [(False, False)]
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
 def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
     """The launch counters stay at zero on CPU tensors: the plain versions ran."""
     from online_detection_tpu_torch.ops import _build
