@@ -5,22 +5,32 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed 0]
 
-1. Builds the port's CUDA kernels from ``online_detection_tpu_torch/csrc``.
+1. Builds the port's CUDA kernels from ``online_detection_tpu_torch/csrc``
+   (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and times both.
-3. Drives ``detect_batched`` at full width (R-50-C4 trunk from a numpy seed,
-   15 anchors, 21 classes, FALKON widths of the flagship configuration) on
-   3 batches of 8 synthetic 608x800 canvases, checks the outputs and that
-   every kernel's launch counter rose by the expected count, traces one more
-   batch with ``torch.profiler``, and checks the card's result against the
-   CPU's plain path on a small input.
-4. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+   shapes the main paths give it, and times both.
+3. Inference: drives ``detect_batched`` at full width (R-50-C4 trunk from a
+   numpy seed, 15 anchors, 21 classes, FALKON widths of the flagship
+   configuration) on 3 batches of 8 synthetic 608x800 canvases, checks the
+   outputs and that every kernel's launch counter rose by the expected
+   count, traces one more batch with ``torch.profiler``, and checks the
+   card's result against the CPU's plain path on a small input.
+4. Training: ``harvest_dataset_device`` over 64 synthetic 800x600 teaching
+   images (one coloured ellipse each, the 21 classes in turn) at batch 8,
+   then ``train_online_modules_device`` with the flagship
+   ``OnlineTrainConfig``, then one ``detect_batched`` batch with the trained
+   models; checks the launch counts of each path, the models and the
+   detections; holds B4 (the harvest RoIAlign) and B1 at the mining shapes
+   against their plain versions; traces one harvest batch; and runs harvest
+   and training on a few small canvases on the card and on the CPU with the
+   same draws.
+5. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
    and, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, with no result line. Details
-(compiler logs, per-call timings) go to ``chiprun_out/chip_smoke.json``, and
-the traced batch's device time by kernel and idle share to
-``chiprun_out/detect_profile.txt``.
+(compiler logs, per-call timings) go to ``chiprun_out/chip_smoke.json``, the
+traced batches' device time by kernel and idle share to
+``chiprun_out/detect_profile.txt`` and ``chiprun_out/harvest_profile.txt``.
 """
 
 from __future__ import annotations
@@ -34,9 +44,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("gaussian_mmv", "stem_pool", "roi_align")
-# per batch on the main path
-EXPECTED_LAUNCHES = {"gaussian_mmv": 3, "stem_pool": 1, "roi_align": 2}
+KERNELS = ("gaussian_mmv", "stem_pool", "roi_align", "roi_align_fused2")
+# per batch of detect_batched
+EXPECTED_LAUNCHES = {"gaussian_mmv": 3, "stem_pool": 1, "roi_align": 2, "roi_align_fused2": 0}
 # NVIDIA H100 SXM data sheet, dense: fp32 on CUDA cores, bf16 on tensor cores
 # (fp32 accumulate), HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -48,6 +58,8 @@ N_CLASSES, N_ANCHORS = 21, 15
 RPN_M, RPN_SIGMA, DET_M, DET_SIGMA, MASK_M, MASK_SIGMA = 1000, 50.0, 1000, 15.0, 500, 10.0
 CANVAS = (608, 800)
 BATCHES, BATCH_SIZE = 3, 8
+# teaching images of 800x600 need no resize: min side 600, canvas 608x800
+TRAIN_IMAGES, TRAIN_HW = 64, (600, 800)
 
 
 def fail(msg: str):
@@ -403,7 +415,8 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
         end = max(end, t)
     device_us = sum(v[0] for v in by_name.values())
     groups = {k: sum(v[0] for n, v in by_name.items() if k in n)
-              for k in ("mmv_grouped_kernel", "stem_kernel", "roi_align_kernel")}
+              for k in ("mmv_grouped_kernel", "stem_kernel", "roi_align_kernel",
+                        "roi_align_fused2_kernel")}
     summary = {"card": card, "wall_ms": wall_us / 1e3, "kernel_ms": device_us / 1e3,
                "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us if wall_us else None,
                "port_kernels_ms": {k: v / 1e3 for k, v in groups.items()},
@@ -411,8 +424,358 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     lines = [json.dumps(summary), f"{'ms':>10} {'calls':>6}  kernel"]
     lines += [f"{us / 1e3:10.3f} {n:6d}  {name[:150]}" for name, (us, n) in rows]
+    lines += ["", "host: operators by self CPU time",
+              prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=25)]
     out_path.write_text("\n".join(lines) + "\n")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# the training path: harvest -> train -> serve
+
+
+class _Anno:
+    def __init__(self, boxes, labels):
+        self.boxes, self.labels = boxes, labels
+
+
+class SyntheticTeachingSet:
+    """In-memory teaching images: noise with one coloured ellipse each, its
+    box and mask; image i shows class i % classes + 1. Made with numpy from
+    the seed, all at construction (set-up), so loading costs the harvest
+    nothing but a copy."""
+
+    def __init__(self, n, hw, classes, seed, min_side=64):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        h, w = hw
+        self.images = rng.integers(0, 60, (n, h, w, 3), dtype=np.uint8)
+        self.boxes, self.labels, self.masks = [], [], []
+        yy, xx = np.ogrid[:h, :w]
+        for i in range(n):
+            bw = int(rng.integers(min_side, w * 3 // 4))
+            bh = int(rng.integers(min_side, h * 3 // 4))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            ell = ((xx - x1 - bw / 2) / (bw / 2)) ** 2 + ((yy - y1 - bh / 2) / (bh / 2)) ** 2 <= 1
+            cls = i % classes
+            self.images[i][ell] = [(cls * 97) % 256, (cls * 57 + 80) % 256,
+                                   (cls * 151 + 40) % 256]
+            self.boxes.append(np.array([[x1, y1, x1 + bw, y1 + bh]], np.float32))
+            self.labels.append(np.array([cls + 1]))
+            self.masks.append(ell[None])
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_image(self, i):
+        return self.images[i]
+
+    def get_annotation(self, i):
+        return _Anno(self.boxes[i], self.labels[i])
+
+    def load_masks(self, i, anno=None):
+        return self.masks[i].astype("float32")
+
+
+def mining_launches(cfg, gt_cap, batch, mask_pix=64):
+    """B1 launches of train_online_modules_device: one grouped launch per
+    solver iteration per class window, for each minibootstrap head."""
+    def windows(c):
+        return -(-c // min(cfg.solver_class_chunk, c))
+
+    seg_rows = 2 * cfg.segm_batch_size + gt_cap * batch * mask_pix  # mask pool + scratch
+    seg_iters = -(-seg_rows // cfg.segm_batch_size)
+    return (windows(cfg.num_anchor_classes) * cfg.iterations
+            + windows(cfg.num_classes) * cfg.iterations + windows(cfg.num_classes) * seg_iters)
+
+
+def harvest_inputs(params, ds, dcfg, dev, gt_cap=20):
+    """The trunk's C4 map and the GT ++ proposal boxes of the first harvest
+    batch: the inputs B4 gets on the harvest path."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.data.transforms import normalize_canvas
+    from online_detection_tpu_torch.models import resnet
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import rpn_scores_deltas
+    from online_detection_tpu_torch.models.rpn import propose, rpn_features
+
+    h, w = CANVAS
+    images = torch.from_numpy(np.stack([ds.load_image(i) for i in range(BATCH_SIZE)])).to(dev)
+    gt = torch.zeros((BATCH_SIZE, gt_cap, 4), device=dev)
+    gt[:, 0] = torch.from_numpy(np.stack([ds.get_annotation(i).boxes[0]
+                                          for i in range(BATCH_SIZE)])).to(dev)
+    sizes = torch.tensor([[w, h]] * BATCH_SIZE, dtype=torch.float32, device=dev)
+    anchors = torch.from_numpy(grid_anchors(h // 16, w // 16)).to(dev)
+    c4 = resnet.backbone_c4(params.backbone, normalize_canvas(images).to(torch.bfloat16))
+    scores, deltas = rpn_scores_deltas(params.rpn, None, rpn_features(params.rpn, c4))
+    props, _, _ = propose(scores, deltas, anchors, sizes, dcfg.pre_nms_top_n,
+                          dcfg.post_nms_top_n, dcfg.rpn_nms_thresh, dcfg.rpn_min_size)
+    return c4, torch.cat([gt, props], dim=1)
+
+
+def check_fused2(c4, rois, report):
+    """B4 against its plain version (bf16 and f32), timed beside B3 and the
+    plain version on the same inputs; its bound is B3's formula."""
+    from online_detection_tpu_torch.ops.roi_align import (
+        roi_align_batched, roi_align_fused2, roi_align_fused2_reference)
+
+    got, ref = roi_align_fused2(c4, rois), roi_align_fused2_reference(c4, rois)
+    check_close("roi_align_fused2", got, ref,
+                bf16_ulp(ref.float()) + 1e-5 * ref.float().abs().max(), report)
+    c4f = c4.float()
+    ref32 = roi_align_fused2_reference(c4f, rois)
+    check_close("roi_align_fused2", roi_align_fused2(c4f, rois), ref32,
+                1e-5 * ref32.abs().max(), report)
+    ms = timed(lambda: roi_align_fused2(c4, rois), 10)
+    plain = timed(lambda: roi_align_fused2_reference(c4, rois), 3)
+    b3_ms = timed(lambda: roi_align_batched(c4, rois), 10)
+    b, h, w, c = c4.shape
+    flops = roi_ops(rois, h, w, c)
+    nbytes = 2.0 * (c4.numel() + got.numel()) + 4.0 * rois.numel()
+    bound, by = bound_of(flops, nbytes)
+    report["roi_align_fused2"].update(
+        ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+        b3_same_inputs_ms=b3_ms, shape=list(got.shape),
+        tolerance="bf16: 1 ulp + 1e-5 max|ref|; f32: 1e-5 max|ref|")
+    print(f"  roi_align_fused2[harvest] {list(got.shape)} bf16: {ms:.3f} ms (plain {plain:.3f} "
+          f"ms, B3 on the same inputs {b3_ms:.3f} ms, bound {bound:.3f} ms, {by})", flush=True)
+
+
+def check_mmv_mining(online, cfg, report, rng):
+    """B1 at the minibootstrap's last mining pass of a class window:
+    [chunk, N, d] rows against each class's trained centers."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped, mmv_reference
+
+    rec = report["gaussian_mmv"]
+    chunk = cfg.solver_class_chunk
+    seg_rows = -(-(2 * cfg.segm_batch_size + 20 * BATCH_SIZE * 64) // cfg.segm_batch_size)
+    heads = (("mining rpn", online.rpn.falkon, cfg.iterations * cfg.batch_size),
+             ("mining detector", online.detector.falkon, cfg.iterations * cfg.batch_size),
+             ("mining mask", online.mask.falkon, seg_rows * cfg.segm_batch_size))
+    for role, fm, n in heads:
+        centers, alpha = fm.centers[:chunk].contiguous(), fm.alpha[:chunk].contiguous()
+        g, m, d = centers.shape
+        pick = torch.from_numpy(rng.integers(0, m, size=(g, n))).to(centers.device)
+        x = centers.gather(1, pick[..., None].expand(g, n, d))
+        x = x + torch.randn(x.shape, device=x.device) * (0.5 * fm.sigma / d ** 0.5)
+        got = mmv_grouped(x, centers, alpha, fm.sigma)
+        ref = mmv_reference(x, centers, alpha, fm.sigma)
+        terms = mmv_reference(x, centers, alpha.abs(), fm.sigma)
+        check_close("gaussian_mmv", got, ref, 1e-5 * terms + 1e-30, report)
+        ms = timed(lambda: mmv_grouped(x, centers, alpha, fm.sigma), 3)
+        plain = timed(lambda: mmv_reference(x, centers, alpha, fm.sigma), 2)
+        flops = 2.0 * g * n * m * (d + 1)
+        nbytes = 4.0 * (x.numel() + centers.numel() + alpha.numel() + g * n)
+        bound, by = bound_of(flops, nbytes)
+        add_call(rec, {"role": role, "groups": g, "rows": n, "centers": m, "d": d, "ms": ms,
+                       "plain_ms": plain, "bound_ms": bound, "flops": flops, "bytes": nbytes,
+                       "max_rel_to_terms": float(((got - ref).abs()
+                                                  / terms.clamp(min=1e-30)).max())})
+        print(f"  gaussian_mmv[{role}] G={g} N={n} M={m} d={d}: {ms:.3f} ms "
+              f"(plain {plain:.3f} ms, bound {bound:.3f} ms, {by})", flush=True)
+        del x, pick, got, ref, terms
+
+
+def check_trained(online, counts, cfg):
+    """Finite models; a head's class exists exactly where its pools had both
+    positives and negatives; every detector class was taught."""
+    import torch
+
+    heads = {"rpn": (online.rpn, "rpn_pos", "rpn_neg"),
+             "detector": (online.detector, "det_pos", "det_neg"),
+             "mask": (online.mask, "mask_pos", "mask_neg")}
+    summary = {}
+    for name, (m, pos, neg) in heads.items():
+        f = m.falkon
+        for k, t in (("centers", f.centers), ("alpha", f.alpha), ("mean", m.stats.mean),
+                     ("mean_norm", m.stats.mean_norm)):
+            if not torch_isfinite(t):
+                fail(f"{name} {k} is not finite")
+        want = (counts[pos] > 0) & (counts[neg] > 0)
+        if name == "detector":  # positives come from the COXY rows, per class
+            want = counts["det_coxy_classes"] & (counts[neg] > 0)
+        got = f.exists.cpu()
+        if not torch.equal(got, want):
+            fail(f"{name} exists {got.tolist()}, expected {want.tolist()}")
+        summary[name] = int(got.sum())
+        rls = getattr(m, "rls", None)
+        if rls is not None and not (torch_isfinite(rls.beta) and torch_isfinite(rls.t_inv)):
+            fail(f"{name} RLS model is not finite")
+    if summary["detector"] != cfg.num_classes:
+        fail(f"only {summary['detector']} of {cfg.num_classes} detector classes trained")
+    return summary
+
+
+def pool_counts(state, cfg):
+    """Per-class counts of the harvested pools (host reads, after harvest)."""
+    import torch
+
+    counts = {k: getattr(state, k).counts.cpu() for k in
+              ("rpn_pos", "rpn_neg", "det_pos", "det_neg", "mask_pos", "mask_neg")}
+    packed = state.det_coxy.rows[0]
+    valid = state.det_coxy.valid_mask()[0]
+    labels = packed[:, -1].long()[valid].cpu()
+    counts["det_coxy_classes"] = torch.zeros(cfg.num_classes, dtype=torch.bool)
+    counts["det_coxy_classes"][(labels - 1).clamp(0, cfg.num_classes - 1)] = True
+    return counts
+
+
+def training_phase(params, seed, card, report, out_dir):
+    """harvest_dataset_device -> train_online_modules_device -> one
+    detect_batched batch with the trained models, each path's launch counts
+    read right after it."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_batched
+    from online_detection_tpu_torch.ops import _build
+    from online_detection_tpu_torch.pipelines.device_pipeline import (
+        harvest_dataset_device, train_online_modules_device)
+    from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+
+    cfg, dcfg = OnlineTrainConfig(), DetectorConfig()
+    ds = SyntheticTeachingSet(TRAIN_IMAGES, TRAIN_HW, cfg.num_classes, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_batches = -(-TRAIN_IMAGES // BATCH_SIZE)
+    paths = {}
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    state, meta = harvest_dataset_device(gen, params, ds, cfg, CANVAS, dcfg=dcfg,
+                                         batch_size=BATCH_SIZE)
+    torch.cuda.synchronize()
+    harvest_s = time.time() - t0
+    paths["harvest"] = dict(_build.LAUNCHES)
+    want = {"gaussian_mmv": 0, "stem_pool": n_batches, "roi_align": 0,
+            "roi_align_fused2": n_batches}
+    if paths["harvest"] != want:
+        fail(f"harvest launched {paths['harvest']}, expected {want}")
+    counts = pool_counts(state, cfg)
+    print(f"harvest_dataset_device {TRAIN_IMAGES} images of {TRAIN_HW[1]}x{TRAIN_HW[0]} at "
+          f"batch {BATCH_SIZE}: {harvest_s:.3f} s, {harvest_s / TRAIN_IMAGES * 1e3:.2f} ms/image "
+          f"on {card}; AR {meta['average_recall']:.4f}, truncation {meta['truncation']}",
+          flush=True)
+
+    _build.reset_launches()
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    online = train_online_modules_device(gen, [state], cfg, timings=stages)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    del state
+    paths["train"] = dict(_build.LAUNCHES)
+    want = {"gaussian_mmv": mining_launches(cfg, 20, BATCH_SIZE), "stem_pool": 0,
+            "roi_align": 0, "roi_align_fused2": 0}
+    if paths["train"] != want:
+        fail(f"training launched {paths['train']}, expected {want}")
+    trained = check_trained(online, counts, cfg)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train_online_modules_device: {train_s:.3f} s; seconds by stage "
+          f"{ {k: round(v, 3) for k, v in stages.items()} } on {card}; classes trained "
+          f"{trained}; peak {peak_gb:.1f} GiB", flush=True)
+
+    h, w = CANVAS
+    anchors = torch.from_numpy(grid_anchors(h // 16, w // 16)).cuda()
+    images = torch.from_numpy(np.stack([ds.load_image(i) for i in range(BATCH_SIZE)])).cuda()
+    sizes = torch.tensor([[w, h]] * BATCH_SIZE, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    dets, masks, props, pvalid = detect_batched(params, online, anchors, images, sizes, dcfg,
+                                                True)
+    torch.cuda.synchronize()
+    paths["serve"] = dict(_build.LAUNCHES)
+    if paths["serve"] != EXPECTED_LAUNCHES:
+        fail(f"serving the trained models launched {paths['serve']}, "
+             f"expected {EXPECTED_LAUNCHES}")
+    n_valid = check_detections(dets, masks, props, pvalid, BATCH_SIZE, dcfg)
+    print(f"detect_batched with the trained models: {n_valid} valid detections", flush=True)
+
+    # one harvest batch traced: the entry point on the first 8 images
+    first = SyntheticTeachingSet(BATCH_SIZE, TRAIN_HW, cfg.num_classes, seed)
+    profiled = profile_batch(
+        lambda: harvest_dataset_device(gen, params, first, cfg, CANVAS, dcfg=dcfg,
+                                       batch_size=BATCH_SIZE),
+        out_dir / "harvest_profile.txt", card)
+    print(f"profile of one harvest batch: {json.dumps(profiled)}", flush=True)
+
+    report["training"] = {
+        "card": card, "images": TRAIN_IMAGES, "harvest_s": harvest_s,
+        "harvest_ms_per_image": harvest_s / TRAIN_IMAGES * 1e3, "train_s": train_s,
+        "train_stage_s": stages, "peak_gib": peak_gb, "launches": paths,
+        "classes_trained": trained, "average_recall": meta["average_recall"],
+        "truncation": meta["truncation"], "valid_detections": n_valid,
+        "harvest_profile": profiled}
+    return online, ds, paths
+
+
+def small_training_reference_check(params, dev, report):
+    """Harvest and training on a few small canvases on the card (kernels) and
+    on the CPU (plain versions), full-width network, the same draws from one
+    CPU generator seed: the trained heads score probe rows alike and serve
+    the same number of detections."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_batched
+    from online_detection_tpu_torch.pipelines.device_pipeline import (
+        harvest_dataset_device, train_online_modules_device)
+    from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+    from online_detection_tpu_torch.solvers.falkon import falkon_predict_classes
+    from online_detection_tpu_torch.solvers.rls import rls_predict
+    from online_detection_tpu_torch.utils.stats import zscore
+
+    h, w = 192, 256
+    ds = SyntheticTeachingSet(4, (h, w), N_CLASSES, 5, min_side=48)
+    cfg = OnlineTrainConfig(det_m=64, rpn_m=64, segm_m=64, iterations=2, batch_size=64,
+                            segm_batch_size=256, rpn_pos_cap=256, det_pos_cap=64,
+                            coxy_cap=512, segm_pos_cap=256)
+    dcfg = DetectorConfig(pre_nms_top_n=200, post_nms_top_n=20, detections_per_img=10,
+                          compute_dtype="float32")
+    anchors = grid_anchors(h // 16, w // 16)
+    images = np.stack([ds.load_image(i) for i in range(2)])
+    sizes = np.array([[w, h]] * 2, np.float32)
+    probe_rng = np.random.default_rng(11)
+
+    def run(device, p):
+        gen = torch.Generator().manual_seed(3)  # CPU draws, moved to the device
+        state, _ = harvest_dataset_device(gen, p, ds, cfg, (h, w), dcfg=dcfg, gt_cap=4,
+                                          min_size=h, batch_size=2, device=device)
+        online = train_online_modules_device(gen, [state], cfg, device=device)
+        dets, _, _, _ = detect_batched(p, online, anchors, images, sizes, dcfg, True,
+                                       device=device)
+        return online.to("cpu"), dets.valid.cpu()
+
+    og, vg = run(dev, params)
+    oc, vc = run("cpu", copy.deepcopy(params).to("cpu"))
+    err = {"n_valid": [int(vg.sum()), int(vc.sum())]}
+    for name in ("rpn", "detector", "mask"):
+        mg, mc = getattr(og, name), getattr(oc, name)
+        x = torch.from_numpy(probe_rng.normal(size=(64, mg.falkon.centers.shape[-1]))
+                             .astype(np.float32)) + mc.stats.mean
+        sg = falkon_predict_classes(mg.falkon, zscore(x, mg.stats))
+        sc = falkon_predict_classes(mc.falkon, zscore(x, mc.stats))
+        err[f"{name}_exists_equal"] = bool(torch.equal(mg.falkon.exists, mc.falkon.exists))
+        err[f"{name}_score_max_err"] = float((sg - sc).abs().max())
+        if name != "mask":
+            err[f"{name}_rls_max_err"] = float((rls_predict(mg.rls, x)
+                                                - rls_predict(mc.rls, x)).abs().max())
+    report["small_training_reference"] = err
+    print(f"  training, card vs CPU plain path on 4x{h}x{w}: {err}", flush=True)
+    if err["n_valid"][0] != err["n_valid"][1] or not all(
+            v for k, v in err.items() if k.endswith("_exists_equal")):
+        fail(f"card and CPU disagree on trained classes or detection counts: {err}")
+    if max(v for k, v in err.items() if k.endswith("_max_err")) > 1e-2:
+        fail(f"card and CPU trained heads disagree: {err}")
 
 
 def main(argv=None) -> int:
@@ -436,6 +799,8 @@ def main(argv=None) -> int:
     from online_detection_tpu_torch.utils.device import ieee_fp32
 
     t_start = time.time()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     card = card_line()
     dev = torch.device("cuda")
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -489,6 +854,7 @@ def main(argv=None) -> int:
         times.append((time.time() - t0) * 1e3)
         n_valid.append(check_detections(dets, masks, props, pvalid, b, cfg))
     launches = dict(_build.LAUNCHES)
+    report["inference_launches"] = dict(launches)
     for k, per in EXPECTED_LAUNCHES.items():
         if launches[k] != per * BATCHES:
             fail(f"{k} launched {launches[k]} times on the main path, "
@@ -496,19 +862,38 @@ def main(argv=None) -> int:
     print(f"detect_batched {b}x{h}x{w}: ms/batch {[round(t, 3) for t in times]} "
           f"valid detections {n_valid} launches {launches} on {card}", flush=True)
 
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     profiled = profile_batch(
         lambda: detect_batched(params, online, anchors, batches[0], sizes, cfg, True),
         out_dir / "detect_profile.txt", card)
     print(f"profile of one batch: {json.dumps(profiled)}", flush=True)
 
     small_reference_check(params, online, dev, report)
+    del online, batches
+    torch.cuda.empty_cache()
+
+    print("training path:", flush=True)
+    with torch.inference_mode(), ieee_fp32():
+        ds = SyntheticTeachingSet(TRAIN_IMAGES, TRAIN_HW, N_CLASSES, args.seed)
+        c4, rois = harvest_inputs(params, ds, cfg, dev)
+        check_fused2(c4, rois, report)
+        del c4, rois
+    trained, _, train_paths = training_phase(params, args.seed, card, report, out_dir)
+    with torch.inference_mode(), ieee_fp32():
+        from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+
+        check_mmv_mining(trained, OnlineTrainConfig(), report, rng)
+    del trained
+    torch.cuda.empty_cache()
+    small_training_reference_check(params, dev, report)
+    for path in train_paths.values():
+        for k, n in path.items():
+            launches[k] += n
 
     replaces = {
         "gaussian_mmv": "online_detection_tpu/ops/gaussian_mmv.py:219",
         "stem_pool": "online_detection_tpu/ops/stem_pool.py:150",
         "roi_align": "online_detection_tpu/ops/roi_align.py:175",
+        "roi_align_fused2": "online_detection_tpu/ops/roi_align.py:311",
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": f"online_detection_tpu_torch/csrc/{k}.cu",
@@ -517,10 +902,13 @@ def main(argv=None) -> int:
          "plain_ms": report[k]["plain_ms"], "bound_ms": report[k]["bound_ms"],
          "bound_by": report[k]["bound_by"], "library_ms": None}
         for k in KERNELS],
-        "not_ported": [{"name": "roi_align_fused2",
-                        "replaces": "online_detection_tpu/ops/roi_align.py:311"}]}
+        "not_ported": []}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": report, "ms_per_batch": times, "launches": launches,
+        {"card": card, "kernels": {k: report[k] for k in KERNELS},
+         "training": report["training"],
+         "small_reference": report["small_reference"],
+         "small_training_reference": report["small_training_reference"],
+         "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,
          "seconds": time.time() - t_start}, indent=1))
     print(json.dumps(line), flush=True)

@@ -1,8 +1,8 @@
 """Image preprocessing with the reference's Caffe2 conventions.
 
-The size arithmetic is a copy of the JAX package's ``data/transforms.py``
-(NumPy); ``normalize_canvas`` is its torch counterpart and runs on the
-tensor's device.
+The size arithmetic and ``preprocess_image_u8`` are a copy of the JAX
+package's ``data/transforms.py`` (NumPy, host side); ``normalize_canvas`` is
+its torch counterpart and runs on the tensor's device.
 """
 
 from __future__ import annotations
@@ -46,6 +46,25 @@ def canvas_size(w: int, h: int, min_size: int = 600, max_size: int = 1333,
     sw, sh = scaled_size(w, h, min_size, max_size)
     pad = lambda v: (v + divisibility - 1) // divisibility * divisibility
     return pad(sh), pad(sw)
+
+
+def preprocess_image_u8(rgb: np.ndarray, canvas_hw: Tuple[int, int], min_size: int = 600,
+                        max_size: int = 1333):
+    """uint8 RGB [H, W, 3] -> (uint8 canvas [ch, cw, 3], scale, (scaled_w,
+    scaled_h)): resize and pad only; BGR and the mean subtraction happen on
+    the device (``normalize_canvas``). PIL is imported only where a resize is
+    needed."""
+    h, w = rgb.shape[:2]
+    s = resize_scale(w, h, min_size, max_size)
+    sw, sh = scaled_size(w, h, min_size, max_size)
+    if (sw, sh) != (w, h):
+        import PIL.Image as PILImage
+
+        rgb = np.asarray(PILImage.fromarray(rgb).resize((sw, sh), PILImage.BILINEAR))
+    ch, cw = canvas_hw
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[: min(sh, ch), : min(sw, cw)] = rgb[:ch, :cw]
+    return canvas, s, (sw, sh)
 
 
 def normalize_canvas(canvas: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,13 @@
 """Anchor grid generation with Detectron's rounding (NumPy).
 
 A copy of the JAX package's ``models/anchors.py`` functions that inference
-needs: 15 anchors per location (5 sizes x 3 ratios, ratio-major), stride 16,
+and the harvest pass need: 15 anchors per location (5 sizes x 3 ratios, ratio-major), stride 16,
 grid ordered (y, x, anchor).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -63,3 +63,13 @@ def grid_anchors(
     shift_x, shift_y = np.meshgrid(sx, sy)
     shifts = np.stack([shift_x, shift_y, shift_x, shift_y], axis=-1).reshape(-1, 1, 4)
     return (shifts + cell[None]).reshape(-1, 4)
+
+
+def anchor_visibility(anchors: np.ndarray, image_size: Tuple[int, int],
+                      straddle_thresh: float = 0.0) -> np.ndarray:
+    """Straddle filter: anchors inside the true (width, height) image."""
+    w, h = image_size
+    if straddle_thresh < 0:
+        return np.ones(anchors.shape[0], bool)
+    return ((anchors[:, 0] >= -straddle_thresh) & (anchors[:, 1] >= -straddle_thresh)
+            & (anchors[:, 2] < w + straddle_thresh) & (anchors[:, 3] < h + straddle_thresh))

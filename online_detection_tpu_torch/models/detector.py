@@ -130,6 +130,18 @@ def init_detector_params(seed: int = 0, num_anchors: int = 15, num_classes: int 
     return DetectorParams(backbone, rpn, mask_head)
 
 
+def rpn_scores_deltas(head: RPNHead, online_rpn: Optional[OnlineRPNModels],
+                      t: torch.Tensor):
+    """Pretrained or on-line RPN head on conv features t [B, H, W, C] ->
+    (scores [B, H*W*A], deltas [B, H*W*A, 4])."""
+    b, h, w, ch = t.shape
+    if online_rpn is None:
+        logits, deltas = rpn_pretrained(head, t)
+    else:
+        logits, deltas = rpn_online_flat(online_rpn, t.reshape(b * h * w, ch))
+    return logits.reshape(b, -1), deltas.reshape(b, -1, 4)
+
+
 def _on(dev: torch.device, name: str, t: torch.Tensor) -> None:
     if t.device.type != dev.type:
         raise ValueError(f"{name} is on {t.device}; move it to {dev} first")
@@ -167,19 +179,7 @@ def detect_batched(
     images = normalize_canvas(images).to(resolve_compute_dtype(cfg, dev))
     c4 = resnet.backbone_c4(params.backbone, images)  # [B, h, w, 1024]
     t = rpn_features(params.rpn, c4)
-    h, w, ch = t.shape[1], t.shape[2], t.shape[3]
-
-    if online.rpn is None:
-        logits, deltas4 = rpn_pretrained(params.rpn, t)
-        a = logits.shape[-1]
-        scores = logits.reshape(b, h * w * a)
-        deltas = deltas4.reshape(b, h * w * a, 4)
-    else:
-        s_f, d_f = rpn_online_flat(online.rpn, t.reshape(b * h * w, ch))
-        a = s_f.shape[-1]
-        scores = s_f.reshape(b, h * w * a)
-        deltas = d_f.reshape(b, h * w * a, 4)
-
+    scores, deltas = rpn_scores_deltas(params.rpn, online.rpn, t)
     prop_boxes, _, prop_valid = propose(
         scores, deltas, anchors, image_sizes,
         pre_nms_top_n=cfg.pre_nms_top_n, post_nms_top_n=cfg.post_nms_top_n,

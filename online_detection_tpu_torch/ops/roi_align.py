@@ -10,8 +10,15 @@
 ``roi_align_batched`` is the entry the inference path calls: a CUDA tensor
 goes through the hand-written kernel ``csrc/roi_align.cu`` (direct per-bin
 sampling), a CPU tensor through ``roi_align_reference``, the plain separable
-form ``A @ F @ B^T`` with per-RoI interpolation matrices. Both accumulate in
-fp32 and round once to the features' dtype.
+form ``A @ F @ B^T`` with per-RoI interpolation matrices.
+
+``roi_align_fused2`` is the entry the harvest pass calls, the same function
+computed as the JAX package's ``roi_align_fused2`` computes it: stage 1
+``A @ F`` (contract H), stage 2 over W. A CUDA tensor goes through
+``csrc/roi_align_fused2.cu``, a CPU tensor through
+``roi_align_fused2_reference``.
+
+All of them accumulate in fp32 and round once to the features' dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from online_detection_tpu_torch.ops import _build
 
 _KERNEL = "roi_align"
+_FUSED2 = "roi_align_fused2"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SAMPLES = 8
 
@@ -106,3 +114,62 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
               spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """One image: [H, W, C] x [R, 4] -> [R, P, P, C]."""
     return roi_align_batched(features[None], rois[None], pooled, spatial_scale)[0]
+
+
+def roi_align_fused2_reference(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
+                               spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Plain version of kernel B4: per image and tile of 16 RoIs (the TPU
+    kernel's), stage 1 ``A [16*P, H] @ F [H, W*C]``, then stage 2 contracts W
+    with each RoI's ``B``. features [B, H, W, C], rois [B, R, 4] ->
+    [B, R, P, P, C]."""
+    roi_tile = 16
+    b, h, w, c = features.shape
+    r = rois.shape[1]
+    out = features.new_empty((b, r, pooled, pooled, c))
+    for i in range(b):
+        f = features[i].float().reshape(h, w * c)
+        for r0 in range(0, r, roi_tile):
+            a, bm = _matrices(rois[i, r0:r0 + roi_tile], pooled, h, w, spatial_scale)
+            t1 = (a.reshape(-1, h) @ f).reshape(a.shape[0], pooled, w, c)
+            out[i, r0:r0 + roi_tile] = torch.einsum("rqw,rpwc->rpqc", bm, t1).to(out.dtype)
+    return out
+
+
+def _roi_align_fused2_cuda(features, rois, pooled, spatial_scale):
+    if features.dtype not in _DTYPES:
+        raise TypeError(f"the RoIAlign kernel takes float32 or bfloat16, not {features.dtype}")
+    b, h, w, c = features.shape
+    if rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4:
+        raise ValueError(f"rois {tuple(rois.shape)} for features {tuple(features.shape)}")
+    if rois.device != features.device:
+        raise ValueError(f"rois are on {rois.device}, features on {features.device}")
+    lib = _build.load(_FUSED2)
+    max_w = lib.odt_roi_align_fused2_max_width()
+    if w > max_w or c % 2 or pooled > 32:
+        raise ValueError(f"the fused RoIAlign kernel takes W <= {max_w}, an even C and "
+                         f"pooled <= 32, not W={w}, C={c}, pooled={pooled}")
+    r = rois.shape[1]
+    features = features.contiguous()
+    if features.data_ptr() % 8:
+        features = features.clone()
+    rois = rois.float().contiguous()
+    out = torch.empty((b, r, pooled, pooled, c), device=features.device, dtype=features.dtype)
+    fn = lib.odt_roi_align_fused2
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    status = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
+                pooled, float(spatial_scale), _DTYPES[features.dtype],
+                torch.cuda.current_stream(features.device).cuda_stream)
+    _build.check(status, "odt_roi_align_fused2")
+    _build.LAUNCHES[_FUSED2] += 1
+    return out
+
+
+def roi_align_fused2(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
+                     spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Batched RoIAlign by separable contractions (kernel B4):
+    [B, H, W, C] x [B, R, 4] -> [B, R, P, P, C]."""
+    if features.is_cuda:
+        return _roi_align_fused2_cuda(features, rois, pooled, spatial_scale)
+    return roi_align_fused2_reference(features, rois, pooled, spatial_scale)

@@ -34,6 +34,31 @@ def box_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def box_iou_masked(boxes_a: torch.Tensor, valid_a: torch.Tensor, boxes_b: torch.Tensor,
+                   valid_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU with invalid rows and columns forced to 0."""
+    iou = box_iou(boxes_a, boxes_b)
+    return iou * valid_a[..., :, None].to(iou.dtype) * valid_b[..., None, :].to(iou.dtype)
+
+
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """GT boxes against proposals -> (dx, dy, dw, dh) regression targets
+    [..., 4] (BoxCoder.encode, +1 convention; widths floored at 1e-6 so
+    inverted padding rows stay finite)."""
+    wx, wy, ww, wh = weights
+    ex_w = (proposals[..., 2] - proposals[..., 0] + TO_REMOVE).clamp(min=1e-6)
+    ex_h = (proposals[..., 3] - proposals[..., 1] + TO_REMOVE).clamp(min=1e-6)
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = (reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE).clamp(min=1e-6)
+    gt_h = (reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE).clamp(min=1e-6)
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w, wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w), wh * torch.log(gt_h / ex_h)], dim=-1)
+
+
 def decode_boxes(
     deltas: torch.Tensor,
     boxes: torch.Tensor,

@@ -109,7 +109,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
     """The launch counters stay at zero on CPU tensors: the plain versions ran."""
     from online_detection_tpu_torch.ops import _build
     from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped
-    from online_detection_tpu_torch.ops.roi_align import roi_align_batched
+    from online_detection_tpu_torch.ops.roi_align import roi_align_batched, roi_align_fused2
     from online_detection_tpu_torch.ops.stem_pool import stem_fused
 
     _build.reset_launches()
@@ -117,4 +117,24 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
     stem_fused(torch.ones(1, 8, 8, 3), torch.ones(64, 3, 7, 7), torch.ones(64),
                torch.zeros(64))
     roi_align_batched(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
-    assert _build.LAUNCHES == {"gaussian_mmv": 0, "stem_pool": 0, "roi_align": 0}
+    roi_align_fused2(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
+    assert _build.LAUNCHES == {"gaussian_mmv": 0, "stem_pool": 0, "roi_align": 0,
+                               "roi_align_fused2": 0}
+
+
+def test_training_entry_points_without_device_raise_before_running(monkeypatch):
+    """With no ``device`` the harvest and the training target the card; on a
+    host with no card they raise before reading any data."""
+    from online_detection_tpu_torch.pipelines import device_pipeline as dp
+    from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Untouchable:
+        def __len__(self):
+            raise AssertionError("the dataset was read")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dp.harvest_dataset_device(None, None, Untouchable(), OnlineTrainConfig(), (64, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dp.train_online_modules_device(None, None, OnlineTrainConfig())

@@ -1,6 +1,6 @@
-"""Port's RoIAlign (plain version of kernel B3) vs the JAX package's
-``roi_align``, and the Pallas ``roi_align_batched`` / ``roi_align_fused2``
-in interpret mode. Boxes include zero-area boxes, boxes past the image edge
+"""Port's RoIAlign (plain versions of kernels B3 and B4) vs the JAX
+package's ``roi_align``, and the Pallas ``roi_align_batched`` /
+``roi_align_fused2`` in interpret mode. Boxes include zero-area boxes, boxes past the image edge
 and a box wider than 8 * P feature cells, which hits the 8-sample clamp.
 
 Tolerance: fp32 sums in another order, atol 5e-5 / rtol 1e-5 (the JAX
@@ -19,6 +19,7 @@ from online_detection_tpu_torch.ops.roi_align import (
     interp_matrix,
     roi_align,
     roi_align_batched,
+    roi_align_fused2,
 )
 
 torch.set_num_threads(2)
@@ -84,3 +85,35 @@ def test_interp_matrix_matches_jax(start, size):
     want = np.asarray(_interp_matrix(jnp.float32(start), jnp.float32(size), 14, 24, 8))
     got = interp_matrix(torch.tensor([start]), torch.tensor([size]), 14, 24)[0].numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_fused2_matches_pallas_fused2_interpret(rng):
+    """B4's plain version against the TPU kernel it replaces, run in
+    interpret mode (f32: there the TPU kernel's feature-dtype rounding of A,
+    B and stage 1 is exact)."""
+    feats = rng.normal(size=(2, 10, 12, 8)).astype(np.float32)
+    rois = _rois(rng, 2, 6, 150)
+    want = np.asarray(j_fused2(jnp.asarray(feats), jnp.asarray(rois), 4, 4, 1 / 16.0, 8,
+                               roi_tile=4, chan_tile=8, interpret=True))
+    got = roi_align_fused2(torch.from_numpy(feats), torch.from_numpy(rois), 4).numpy()
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("r", [5, 23])  # under and over one tile of 16 RoIs
+def test_fused2_matches_jax_separable(rng, r):
+    feats = rng.normal(size=(2, 18, 24, 32)).astype(np.float32)
+    rois = _rois(rng, 2, r, 350)
+    want = _separable(feats, rois, 14)
+    got = roi_align_fused2(torch.from_numpy(feats), torch.from_numpy(rois), 14).numpy()
+    assert got.shape == (2, r, 14, 14, 32)
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-5)
+
+
+def test_fused2_keeps_the_feature_dtype(rng):
+    feats = torch.from_numpy(rng.normal(size=(1, 6, 7, 4)).astype(np.float32))
+    rois = torch.from_numpy(_rois(rng, 1, 4, 90))
+    got = roi_align_fused2(feats.to(torch.bfloat16), rois, 3)
+    assert got.dtype == torch.bfloat16
+    want = roi_align_fused2(feats.to(torch.bfloat16).float(), rois, 3)
+    # one rounding of the fp32 result: within half a bf16 ulp
+    assert torch.all((got.float() - want).abs() <= want.abs() * 2.0 ** -8 + 1e-30)

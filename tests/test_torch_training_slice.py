@@ -1,0 +1,185 @@
+"""The training slice as a whole, through both packages on the CPU: harvest
+(``harvest_dataset_device``), training (``train_online_modules_device``) and
+``detect_batched`` with the trained models, on a tiny synthetic teaching set
+(4 images of 96x128, one ellipse each, 3 classes) and the narrow network of
+``test_torch_detector``.
+
+Both sides run without draws that matter: the harvest in the pinned
+``parity_sampling`` mode (set on both packages' ``HarvestConfig``), and the
+solvers sized so that every pool stays under its quota (Nystrom centers,
+feature statistics), where both take every row. The reservoirs' feature
+widths follow the narrow network (set on both packages' ``init_reservoirs``).
+
+Tolerances: reservoir counts equal, rows within 1e-4 (fp32 convs in another
+order); head scores on probe rows within 2e-3 and RLS predictions within
+2e-3 (fp32 Cholesky solves of M=160 systems); detections: equal validity
+and labels, scores within 2e-3, boxes within 1e-2 px; mask probabilities
+within 1e-2 (the segmenter's ridge is 1e-6, so its per-pixel solve carries
+fp32 rounding further than the other heads')."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from online_detection_tpu.engine import device_accumulate as j_dacc
+from online_detection_tpu.models import detector as jdet
+from online_detection_tpu.pipelines import device_pipeline as j_dpipe
+from online_detection_tpu.pipelines.online_pipeline import OnlineTrainConfig as JCfg
+from online_detection_tpu.solvers.falkon import falkon_predict_classes as j_predict
+from online_detection_tpu.solvers.rls import rls_predict as j_rls_predict
+from online_detection_tpu_torch.engine import device_accumulate as dacc
+from online_detection_tpu_torch.models import detector
+from online_detection_tpu_torch.models.anchors import grid_anchors
+from online_detection_tpu_torch.models.weights import params_from_jax
+from online_detection_tpu_torch.pipelines import device_pipeline as dpipe
+from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+from online_detection_tpu_torch.solvers.falkon import falkon_predict_classes
+from online_detection_tpu_torch.solvers.rls import rls_predict
+from tests.test_torch_detector import STAGES, narrow_tree
+
+torch.set_num_threads(2)
+
+H, W, N_IMG, N_CLS = 96, 128, 4, 3
+CFG = dict(num_classes=N_CLS, det_m=64, rpn_m=64, segm_m=160, iterations=2, batch_size=24,
+           segm_batch_size=64, rpn_pos_cap=64, det_pos_cap=32, coxy_cap=128, segm_pos_cap=64,
+           solver_class_chunk=2)
+DCFG = dict(pre_nms_top_n=150, post_nms_top_n=40, detections_per_img=12)
+HARVEST = dict(gt_cap=4, min_size=96, max_size=400, batch_size=2)
+
+
+class _Anno:
+    def __init__(self, boxes, labels):
+        self.boxes, self.labels = boxes, labels
+
+
+class TinyTeachingSet:
+    """One coloured ellipse per image, with its box and mask; class i % 3 + 1."""
+
+    def __init__(self, n, h, w):
+        self.n, self.h, self.w = n, h, w
+
+    def __len__(self):
+        return self.n
+
+    def _make(self, i):
+        rng = np.random.default_rng(100 + i)
+        img = rng.integers(0, 60, (self.h, self.w, 3), dtype=np.uint8)
+        bw = int(rng.integers(self.w // 4, self.w // 2))
+        bh = int(rng.integers(self.h // 4, self.h // 2))
+        x1, y1 = int(rng.integers(0, self.w - bw)), int(rng.integers(0, self.h - bh))
+        yy, xx = np.mgrid[:self.h, :self.w]
+        ell = ((xx - x1 - bw / 2) / (bw / 2)) ** 2 + ((yy - y1 - bh / 2) / (bh / 2)) ** 2 <= 1
+        img[ell] = [(i * 70) % 255, (i * 130) % 255, (i * 40 + 100) % 255]
+        box = np.array([[x1, y1, x1 + bw, y1 + bh]], np.float32)
+        return img, box, np.array([i % N_CLS + 1]), ell[None].astype(np.float32)
+
+    def load_image(self, i):
+        return self._make(i)[0]
+
+    def get_annotation(self, i):
+        _, box, label, _ = self._make(i)
+        return _Anno(box, label)
+
+    def load_masks(self, i, anno=None):
+        return self._make(i)[3]
+
+
+@pytest.fixture(scope="module")
+def slice_runs():
+    """(JAX reservoirs, JAX models, JAX detections, port reservoirs, port
+    models, port detections)."""
+    rng = np.random.default_rng(7)
+    tree = narrow_tree(rng)
+    jtree = jax.tree_util.tree_map(jnp.asarray, tree)
+    params = params_from_jax(tree)
+    ds = TinyTeachingSet(N_IMG, H, W)
+    c4, c5 = STAGES[2][1], STAGES[3][1]
+    mp = pytest.MonkeyPatch()
+    try:
+        for mod in (j_dpipe, dpipe):
+            mp.setattr(mod, "HarvestConfig",
+                       functools.partial(mod.HarvestConfig, parity_sampling=True))
+        for mod in (j_dacc, dacc):
+            mp.setattr(mod, "init_reservoirs",
+                       functools.partial(mod.init_reservoirs, rpn_dim=c4, det_dim=c5))
+        jcfg = JCfg(**CFG)
+        jstate, _ = j_dpipe.harvest_dataset_device(
+            jax.random.key(1), jtree, ds, jcfg, (H, W),
+            dcfg=jdet.DetectorConfig(**DCFG), **HARVEST)
+        jcounts = {k: np.asarray(getattr(jstate, k).counts) for k in _POOLS}
+        jrows = {k: np.asarray(getattr(jstate, k).rows) for k in _POOLS}
+        jonline = j_dpipe.train_online_modules_device(jax.random.key(2), [jstate], jcfg)
+
+        cfg = OnlineTrainConfig(**CFG)
+        gen = torch.Generator().manual_seed(0)
+        state, _ = dpipe.harvest_dataset_device(
+            gen, params, ds, cfg, (H, W), dcfg=detector.DetectorConfig(**DCFG),
+            device="cpu", **HARVEST)
+        counts = {k: getattr(state, k).counts.numpy() for k in _POOLS}
+        rows = {k: getattr(state, k).rows.numpy().copy() for k in _POOLS}
+        online = dpipe.train_online_modules_device(gen, [state], cfg, device="cpu")
+    finally:
+        mp.undo()
+
+    images = np.stack([ds.load_image(i) for i in range(2)])
+    sizes = np.array([[W, H]] * 2, np.float32)
+    anchors = grid_anchors(H // 16, W // 16)
+    jd = jdet.detect_batched(jtree, jonline, jnp.asarray(anchors), jnp.asarray(images),
+                             jnp.asarray(sizes), jdet.DetectorConfig(**DCFG), True)
+    pd = detector.detect_batched(params, online, anchors, images, sizes,
+                                 detector.DetectorConfig(**DCFG), True, device="cpu")
+    return (jcounts, jrows, jonline, jd), (counts, rows, online, pd)
+
+
+_POOLS = ("rpn_neg", "rpn_pos", "rpn_coxy_y", "det_neg", "det_pos", "det_coxy", "mask_pos",
+          "mask_neg")
+
+
+def test_reservoirs_match(slice_runs):
+    (jcounts, jrows, _, _), (counts, rows, _, _) = slice_runs
+    for k in _POOLS:
+        np.testing.assert_array_equal(counts[k], jcounts[k], err_msg=k)
+        valid = np.arange(rows[k].shape[1])[None, :] < counts[k][:, None]
+        np.testing.assert_allclose(rows[k][valid], jrows[k][valid], atol=1e-4, rtol=1e-4,
+                                   err_msg=k)
+    assert counts["det_neg"].min() > 0 and counts["mask_neg"].min() > 0
+
+
+def _probe(rng, d):
+    return rng.normal(size=(32, d)).astype(np.float32) * 3.0
+
+
+@pytest.mark.parametrize("head", ["rpn", "detector", "mask"])
+def test_trained_heads_score_alike(slice_runs, head):
+    (_, _, jonline, _), (_, _, online, _) = slice_runs
+    jm, m = getattr(jonline, head), getattr(online, head)
+    np.testing.assert_array_equal(m.falkon.exists.numpy(), np.asarray(jm.falkon.exists))
+    assert m.falkon.exists.any()
+    x = _probe(np.random.default_rng(3), m.falkon.centers.shape[-1])
+    x = x + m.stats.mean.numpy()  # around the features, before z-scoring
+    from online_detection_tpu.utils.stats import zscore as j_zscore
+    from online_detection_tpu_torch.utils.stats import zscore
+
+    want = np.asarray(j_predict(jm.falkon, j_zscore(jnp.asarray(x), jm.stats)))
+    got = falkon_predict_classes(m.falkon, zscore(torch.from_numpy(x), m.stats)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
+    if head != "mask":
+        np.testing.assert_array_equal(m.rls.exists.numpy(), np.asarray(jm.rls.exists))
+        np.testing.assert_allclose(rls_predict(m.rls, torch.from_numpy(x)).numpy(),
+                                   np.asarray(j_rls_predict(jm.rls, jnp.asarray(x))),
+                                   atol=2e-3, rtol=2e-3)
+
+
+def test_detections_with_trained_models_match(slice_runs):
+    (_, _, _, (wd, wm, _, wpv)), (_, _, _, (gd, gm, _, gpv)) = slice_runs
+    np.testing.assert_array_equal(gpv.numpy(), np.asarray(wpv))
+    np.testing.assert_array_equal(gd.valid.numpy(), np.asarray(wd.valid))
+    np.testing.assert_array_equal(gd.labels.numpy(), np.asarray(wd.labels))
+    assert gd.valid.any()
+    np.testing.assert_allclose(gd.scores.numpy(), np.asarray(wd.scores), atol=2e-3)
+    np.testing.assert_allclose(gd.boxes.numpy(), np.asarray(wd.boxes), atol=1e-2)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=1e-2)

@@ -35,3 +35,14 @@ def test_normalize_canvas_matches_jax(rng):
     np.testing.assert_array_equal(got.numpy(), np.asarray(jt.normalize_canvas(jnp.asarray(canvas))))
     already = torch.randn(2, 3, 3)
     assert transforms.normalize_canvas(already) is already
+
+
+@pytest.mark.parametrize("hw,canvas", [((96, 128), (96, 128)), ((120, 170), (96, 160))])
+def test_preprocess_image_u8_matches_jax(rng, hw, canvas):
+    """No resize (sizes equal, exact), and a PIL resize (the same call on both
+    sides, exact) padded into a smaller canvas."""
+    rgb = rng.integers(0, 256, size=hw + (3,), dtype=np.uint8)
+    got = transforms.preprocess_image_u8(rgb, canvas, 96, 400)
+    want = jt.preprocess_image_u8(rgb, canvas, 96, 400)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:] and got[0].dtype == np.uint8
