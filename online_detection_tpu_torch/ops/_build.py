@@ -108,8 +108,8 @@ def load(name: str) -> ctypes.CDLL:
 
 #: kernel name -> launches since the last reset. Each wrapper adds one where
 #: it launches its kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {"gaussian_mmv": 0, "stem_pool": 0, "roi_align": 0,
-                            "roi_align_fused2": 0}
+LAUNCHES: Dict[str, int] = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": 0,
+                            "roi_align": 0, "roi_align_fused2": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 """Port's Gaussian mmv (plain version of kernel B1) vs the JAX package:
 ``mmv_xla``, the Pallas ``mmv_pallas`` in interpret mode, the class-batched
-FALKON predict, and the own-class mask scores.
+FALKON predict, and the own-class mask scores; and the kernel's 3xTF32
+arithmetic, emulated on the CPU, against ``mmv_xla``.
 
 Tolerance: the same fp32 function summed in another order, so each output
 may differ by 1e-5 of the sum of its terms' magnitudes, ``K @ |v|``."""
@@ -18,6 +19,8 @@ from online_detection_tpu_torch.ops.gaussian_mmv import (
     mmv,
     mmv_grouped,
     mmv_reference,
+    split_tf32,
+    split_tf32_reference,
 )
 from online_detection_tpu_torch.solvers.falkon import FalkonModel, falkon_predict_classes
 
@@ -154,3 +157,85 @@ def test_mask_predict_labels_matches_jax(rng):
     got = mask_predict_labels(pm, torch.from_numpy(feats), torch.from_numpy(labels)).numpy()
     assert got.shape == (7, 14, 14)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# --- the kernel's arithmetic: 3xTF32 --------------------------------------
+
+# (d, sigma) of the three roles: RPN, detector, mask / segmenter
+_ROLES = [(1024, 50.0), (2048, 15.0), (256, 10.0)]
+
+
+def _tf32(a):
+    """TF32 rounding to nearest, ties away from zero (``cvt.rna.tf32.f32``),
+    on the int32 view: add half of the 13 dropped bits, then clear them."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((bits + 0x1000) & np.int32(-0x2000)).view(np.float32)
+
+
+def _near_centers(rng, d, sigma, n=96, m=64):
+    """Centers at the scale of z-scored features (norm ~20) and rows drawn
+    next to them, as in minibootstrap mining: the cross term cancels most."""
+    c = (rng.normal(size=(m, d)) * 20 / np.sqrt(d)).astype(np.float32)
+    x = c[rng.integers(0, m, n)] + rng.normal(size=(n, d)) * 0.5 * sigma / np.sqrt(d)
+    v = rng.normal(size=m).astype(np.float32)
+    return x.astype(np.float32), c, v
+
+
+def _tf32_mmv(x, c, v, sigma, passes):
+    """The mmv with its cross term as a sum of fp32 products of tf32 values:
+    3 passes (x_lo c_hi + x_hi c_lo + x_hi c_hi, as the kernel) or 1."""
+    xh, ch = _tf32(x), _tf32(c)
+    xl, cl = _tf32(x - xh), _tf32(c - ch)
+    pairs = [(xl, ch), (xh, cl), (xh, ch)] if passes == 3 else [(xh, ch)]
+    cross = torch.zeros(len(x), len(c))
+    for a, b in pairs:
+        cross += torch.from_numpy(a) @ torch.from_numpy(b).T
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    sq = (xt * xt).sum(1)[:, None] + (ct * ct).sum(1)[None] - 2 * cross
+    k = torch.exp(-sq.clamp(min=0) / (2 * sigma * sigma))
+    return (k @ torch.from_numpy(v)).numpy()
+
+
+def test_split_tf32_reference_gives_tf32_halves(rng):
+    x = (rng.normal(size=4096) * 10.0 ** rng.uniform(-15, 15, 4096)).astype(np.float32)
+    ties = np.array([1, -1, 2.0 ** -12], np.float32) * np.float32(1 + 2.0 ** -11)
+    x = np.concatenate([x, ties])
+    hi, lo, sq = (t.numpy() for t in split_tf32_reference(torch.from_numpy(x[:, None])))
+    hi, lo = hi[:, 0], lo[:, 0]
+    np.testing.assert_array_equal(sq, x * x)
+    assert (hi.view(np.int32) & 0x1FFF == 0).all() and (lo.view(np.int32) & 0x1FFF == 0).all()
+    np.testing.assert_array_equal(hi, _tf32(x))
+    np.testing.assert_array_equal(lo, _tf32(x - hi))
+    # ties round away from zero
+    np.testing.assert_array_equal(hi[-3:], np.array([1, -1, 2.0 ** -12], np.float32)
+                                  * np.float32(1 + 2.0 ** -10))
+    err = np.abs(hi.astype(np.float64) + lo - x)
+    assert (err <= 2.0 ** -22 * np.abs(x)).all()
+    rows = torch.from_numpy(x[:4096].reshape(64, 64))
+    cpu_hi, cpu_lo, cpu_sq = split_tf32(rows)  # a CPU tensor takes the plain version
+    np.testing.assert_array_equal(cpu_hi.numpy().ravel(), hi[:4096])
+    np.testing.assert_array_equal(cpu_lo.numpy().ravel(), lo[:4096])
+    np.testing.assert_array_equal(cpu_sq.numpy(), (rows * rows).sum(1).numpy())
+
+
+@pytest.mark.parametrize("d,sigma", _ROLES)
+def test_three_pass_tf32_mmv_matches_mmv_xla(rng, d, sigma):
+    x, c, v = _near_centers(rng, d, sigma)
+    want = np.asarray(mmv_xla(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), sigma))
+    got = _tf32_mmv(x, c, v, sigma, passes=3)
+    assert (np.abs(got - want) <= _bound(x, c, v, sigma)[:, 0]).all()
+
+
+@pytest.mark.parametrize("d,sigma", _ROLES)
+def test_one_pass_tf32_mmv_is_far_less_accurate(rng, d, sigma):
+    """Control for the test above: on the same data a single TF32 pass is at
+    least 10x further from ``mmv_xla``, and at the mask role's width (the
+    smallest sigma against the features' norm) it breaks the bound."""
+    x, c, v = _near_centers(rng, d, sigma)
+    want = np.asarray(mmv_xla(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), sigma))
+    bound = _bound(x, c, v, sigma)[:, 0]
+    err3 = np.abs(_tf32_mmv(x, c, v, sigma, passes=3) - want) / bound
+    err1 = np.abs(_tf32_mmv(x, c, v, sigma, passes=1) - want) / bound
+    assert err1.max() >= 10 * err3.max()
+    if d == 256:
+        assert (err1 > 1).any()

@@ -108,18 +108,19 @@ def test_detect_batched_scopes_the_tf32_flags(monkeypatch):
 def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
     """The launch counters stay at zero on CPU tensors: the plain versions ran."""
     from online_detection_tpu_torch.ops import _build
-    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped
+    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped, split_tf32
     from online_detection_tpu_torch.ops.roi_align import roi_align_batched, roi_align_fused2
     from online_detection_tpu_torch.ops.stem_pool import stem_fused
 
     _build.reset_launches()
     mmv_grouped(torch.ones(3, 4), torch.ones(2, 5, 4), torch.ones(2, 5), 1.0)
+    split_tf32(torch.ones(2, 4))
     stem_fused(torch.ones(1, 8, 8, 3), torch.ones(64, 3, 7, 7), torch.ones(64),
                torch.zeros(64))
     roi_align_batched(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
     roi_align_fused2(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
-    assert _build.LAUNCHES == {"gaussian_mmv": 0, "stem_pool": 0, "roi_align": 0,
-                               "roi_align_fused2": 0}
+    assert _build.LAUNCHES == {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": 0,
+                               "roi_align": 0, "roi_align_fused2": 0}
 
 
 def test_training_entry_points_without_device_raise_before_running(monkeypatch):
