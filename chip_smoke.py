@@ -12,6 +12,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    cores) must stay within 1e-5 of the sum of its terms' magnitudes of the
    IEEE fp32 plain version, its tf32 split must match its plain version bit
    for bit, and its bound is taken at the 3xTF32 rate (495 / 3 TFLOP/s).
+   The RoIAlign kernels B3 and B4 are also held, at full width, on
+   adversarial boxes over a 38 x 50 and a 50 x 84 map, and their times are
+   printed beside those of the kernels they replaced (``REPLACED_ROI_MS``).
 3. Inference: drives ``detect_batched`` at full width (R-50-C4 trunk from a
    numpy seed, 15 anchors, 21 classes, FALKON widths of the flagship
    configuration) on 3 batches of 8 synthetic 608x800 canvases, checks the
@@ -67,6 +70,11 @@ PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # replaced (PERF.md, section 6)
 SIMT_B1_MS = {"rpn": 11.52, "detector": 6.64, "mask": 1.63, "mining rpn": 8.78,
              "mining detector": 17.25, "mining mask": 3.72}
+# B3 (proposals, detections) and B4 (harvest) per call on the same kind of
+# card with the kernels these replaced (B3 sampled each bin directly, B4
+# contracted H first per pooled row; tools/roi_variants.py keeps both and
+# times them beside the new ones)
+REPLACED_ROI_MS = {"proposals": 2.030, "detections": 0.767, "harvest": 1.631}
 
 # flagship on-line widths (OnlineTrainConfig of the JAX package's online pipeline)
 N_CLASSES, N_ANCHORS = 21, 15
@@ -384,10 +392,67 @@ def check_roi(inputs, report):
         nbytes = 2.0 * (c4.numel() + got.numel()) + 4.0 * rois.numel()
         bound, by = bound_of(flops, nbytes)
         add_call(rec, {"role": role, "shape": list(got.shape), "ms": ms, "plain_ms": plain,
-                       "bound_ms": bound, "flops": flops, "bytes": nbytes})
-        print(f"  roi_align[{role}] {list(got.shape)} bf16: {ms:.3f} ms (plain {plain:.3f} ms, "
-              f"bound {bound:.3f} ms, {by})", flush=True)
+                       "bound_ms": bound, "flops": flops, "bytes": nbytes,
+                       "replaced_ms": REPLACED_ROI_MS[role]})
+        print(f"  roi_align[{role}] {list(got.shape)} bf16: {ms:.3f} ms (replaced kernel "
+              f"{REPLACED_ROI_MS[role]:.3f} ms; plain {plain:.3f} ms; bound {bound:.3f} ms, {by}: "
+              f"{bound / ms:.0%} of it)", flush=True)
     rec["tolerance"] = "bf16: 1 ulp + 1e-5 max|ref|; f32: 1e-5 max|ref|"
+
+
+def adversarial_rois(rng, b, r, hi):
+    """Random boxes, and in each image a zero-area box, boxes past the far
+    and the near edge, and a box wider than 8 x 14 feature cells (the
+    8-sample clamp): the boxes ``tests/test_torch_roi_align.py`` makes."""
+    import numpy as np
+
+    raw = rng.uniform(0, hi, size=(b, r, 4)).astype(np.float32)
+    rois = np.concatenate([np.minimum(raw[..., :2], raw[..., 2:]),
+                           np.maximum(raw[..., :2], raw[..., 2:])], -1)
+    rois[:, 0] = [50.0, 40.0, 50.0, 40.0]
+    rois[:, 1] = [hi - 20, hi - 30, hi + 200, hi + 150]
+    rois[:, 2] = [-60.0, -40.0, 30.0, 20.0]
+    rois[:, 3] = [0.0, 0.0, 2000.0, 1900.0]
+    return rois
+
+
+def check_roi_adversarial(seed, report):
+    """B3 and B4 against their plain versions at full width (C = 1024), bf16
+    and f32, on adversarial boxes over a 608x800 map (38 x 50) and a
+    1333-pixel-wide one (50 x 84), random-normal features. The plain
+    versions run on the CPU here, on the same inputs: on the card their
+    einsums drift from a float64 evaluation by up to 4.5e-5 at W = 84 on
+    these features, over the 1e-5 tolerance, while the kernels stay within
+    4e-7 of it (NVIDIA H100 80GB HBM3)."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.ops.roi_align import (
+        roi_align_batched, roi_align_fused2, roi_align_fused2_reference, roi_align_reference)
+
+    rng = np.random.default_rng(seed + 1)
+    worst = {}
+    for h, w in ((38, 50), (50, 84)):
+        feats = torch.from_numpy(rng.normal(size=(2, h, w, 1024)).astype(np.float32)).cuda()
+        rois = torch.from_numpy(adversarial_rois(rng, 2, 24, 16.0 * w)).cuda()
+        for name, fn, plain in (("roi_align", roi_align_batched, roi_align_reference),
+                                ("roi_align_fused2", roi_align_fused2,
+                                 roi_align_fused2_reference)):
+            for dt in (torch.bfloat16, torch.float32):
+                f = feats.to(dt)
+                got, ref = fn(f, rois).cpu(), plain(f.cpu(), rois.cpu())
+                ref32 = ref.float()
+                tol = 1e-5 * ref32.abs().max()
+                if dt == torch.bfloat16:
+                    tol = bf16_ulp(ref32) + tol
+                check_close(name, got, ref, tol, report)
+                key = f"{name} {h}x{w} {str(dt).split('.')[-1]}"
+                worst[key] = float((got.float() - ref32).abs().max())
+    for name in ("roi_align", "roi_align_fused2"):
+        report[name]["adversarial_max_abs_err"] = {k: v for k, v in worst.items()
+                                                   if k.split()[0] == name}
+    print(f"  roi_align, roi_align_fused2 on adversarial boxes (zero-area, past both edges, "
+          f"8-sample clamp), C=1024, 38x50 and 50x84 maps: max err {worst}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -611,10 +676,11 @@ def check_fused2(c4, rois, report):
     bound, by = bound_of(flops, nbytes)
     report["roi_align_fused2"].update(
         ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
-        b3_same_inputs_ms=b3_ms, shape=list(got.shape),
+        b3_same_inputs_ms=b3_ms, shape=list(got.shape), replaced_ms=REPLACED_ROI_MS["harvest"],
         tolerance="bf16: 1 ulp + 1e-5 max|ref|; f32: 1e-5 max|ref|")
-    print(f"  roi_align_fused2[harvest] {list(got.shape)} bf16: {ms:.3f} ms (plain {plain:.3f} "
-          f"ms, B3 on the same inputs {b3_ms:.3f} ms, bound {bound:.3f} ms, {by})", flush=True)
+    print(f"  roi_align_fused2[harvest] {list(got.shape)} bf16: {ms:.3f} ms (replaced kernel "
+          f"{REPLACED_ROI_MS['harvest']:.3f} ms; plain {plain:.3f} ms; B3 on the same inputs "
+          f"{b3_ms:.3f} ms; bound {bound:.3f} ms, {by}: {bound / ms:.0%} of it)", flush=True)
 
 
 def check_mmv_mining(online, cfg, report, rng):
@@ -903,6 +969,7 @@ def main(argv=None) -> int:
         check_mmv(inputs, report)
         check_stem(params, inputs, report)
         check_roi(inputs, report)
+        check_roi_adversarial(args.seed, report)
     del inputs
     torch.cuda.empty_cache()
 
@@ -958,6 +1025,12 @@ def main(argv=None) -> int:
     print(f"B1 at its six main-path calls: {b1['ms']:.3f} ms (SIMT fp32 kernel: "
           f"{sum(SIMT_B1_MS.values()):.2f} ms; 3xTF32 bound {b1['bound_ms']:.3f} ms, fp32 "
           f"bound {b1['bound_fp32_ms']:.3f} ms) on {card}", flush=True)
+    b3, b4 = report["roi_align"], report["roi_align_fused2"]
+    print(f"B3 per inference batch: {b3['ms']:.3f} ms (replaced kernel "
+          f"{REPLACED_ROI_MS['proposals'] + REPLACED_ROI_MS['detections']:.3f} ms; bound "
+          f"{b3['bound_ms']:.3f} ms); B4 per harvest batch: {b4['ms']:.3f} ms (replaced kernel "
+          f"{REPLACED_ROI_MS['harvest']:.3f} ms; bound {b4['bound_ms']:.3f} ms) on {card}",
+          flush=True)
 
     replaces = {  # the split is B1's operand preparation
         "gaussian_mmv": "online_detection_tpu/ops/gaussian_mmv.py:219",

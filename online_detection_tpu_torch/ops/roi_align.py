@@ -7,16 +7,16 @@
 - a sample with coordinate < -1 or > dim contributes 0; otherwise the
   coordinate is clamped to [0, dim - 1].
 
-``roi_align_batched`` is the entry the inference path calls: a CUDA tensor
-goes through the hand-written kernel ``csrc/roi_align.cu`` (direct per-bin
-sampling), a CPU tensor through ``roi_align_reference``, the plain separable
-form ``A @ F @ B^T`` with per-RoI interpolation matrices.
-
-``roi_align_fused2`` is the entry the harvest pass calls, the same function
-computed as the JAX package's ``roi_align_fused2`` computes it: stage 1
-``A @ F`` (contract H), stage 2 over W. A CUDA tensor goes through
-``csrc/roi_align_fused2.cu``, a CPU tensor through
-``roi_align_fused2_reference``.
+``roi_align_batched`` (kernel B3) is the entry the inference path calls,
+``roi_align_fused2`` (kernel B4) the one the harvest pass calls. On a CUDA
+tensor each launches its own kernel, ``csrc/roi_align.cu`` and
+``csrc/roi_align_fused2.cu``, which share one body
+(``csrc/roi_align_common.cuh``: a warp per pooled row and 256-channel tile
+contracts H, then W) and keep two launch counters. On a CPU tensor each
+takes its plain version: ``roi_align_reference``, the separable form
+``A @ F @ B^T`` with per-RoI interpolation matrices, and
+``roi_align_fused2_reference``, the same function computed as the JAX
+package's ``roi_align_fused2`` computes it (stage 1 contracts H, stage 2 W).
 
 All of them accumulate in fp32 and round once to the features' dtype.
 """
@@ -33,6 +33,12 @@ _KERNEL = "roi_align"
 _FUSED2 = "roi_align_fused2"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SAMPLES = 8
+# what the kernels take (roi::MAX_POOLED and roi::MAX_DIM in
+# csrc/roi_align_common.cuh): pooled <= 32, H and W <= 128, C a whole number
+# of 16-byte vectors, 16-byte aligned features
+MAX_POOLED = 32
+MAX_DIM = 128
+VECTOR_BYTES = 16
 
 
 def interp_matrix(start: torch.Tensor, size: torch.Tensor, pooled: int, dim: int,
@@ -78,27 +84,51 @@ def roi_align_reference(features: torch.Tensor, rois: torch.Tensor, pooled: int 
     return torch.stack(outs)
 
 
-def _roi_align_cuda(features, rois, pooled, spatial_scale):
+def check_kernel_args(features: torch.Tensor, rois: torch.Tensor, pooled: int) -> None:
+    """Raise on what kernels B3 and B4 do not take: ``TypeError`` for a dtype
+    other than float32 or bfloat16, ``ValueError`` for mismatched shapes or
+    devices, ``pooled`` outside [1, 32], H or W outside [1, 128], a C that is
+    not a whole number of 16-byte vectors, or features that are not
+    contiguous and 16-byte aligned."""
     if features.dtype not in _DTYPES:
-        raise TypeError(f"the RoIAlign kernel takes float32 or bfloat16, not {features.dtype}")
+        raise TypeError(f"the RoIAlign kernels take float32 or bfloat16, not {features.dtype}")
+    if features.dim() != 4:
+        raise ValueError(f"features must be [B, H, W, C], not {tuple(features.shape)}")
     b, h, w, c = features.shape
     if rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4:
         raise ValueError(f"rois {tuple(rois.shape)} for features {tuple(features.shape)}")
     if rois.device != features.device:
         raise ValueError(f"rois are on {rois.device}, features on {features.device}")
-    r = rois.shape[1]
+    if not 1 <= pooled <= MAX_POOLED:
+        raise ValueError(f"the RoIAlign kernels take pooled <= {MAX_POOLED}, not {pooled}")
+    if not (1 <= h <= MAX_DIM and 1 <= w <= MAX_DIM):
+        raise ValueError(f"the RoIAlign kernels take H and W <= {MAX_DIM}, not {h}x{w}")
+    vec = VECTOR_BYTES // features.element_size()
+    if c < vec or c % vec:
+        raise ValueError(f"the RoIAlign kernels take C a multiple of {vec} for "
+                         f"{features.dtype}, not {c}")
+    if not features.is_contiguous() or features.data_ptr() % VECTOR_BYTES:
+        raise ValueError(f"the RoIAlign kernels take contiguous features aligned to "
+                         f"{VECTOR_BYTES} bytes")
+
+
+def _launch(name: str, features, rois, pooled, spatial_scale):
+    """Kernel ``name`` (``roi_align`` or ``roi_align_fused2``) on CUDA tensors."""
     features = features.contiguous()
+    check_kernel_args(features, rois, pooled)
+    b, h, w, c = features.shape
+    r = rois.shape[1]
     rois = rois.float().contiguous()
     out = torch.empty((b, r, pooled, pooled, c), device=features.device, dtype=features.dtype)
-    fn = _build.load(_KERNEL).odt_roi_align
+    fn = getattr(_build.load(name), f"odt_{name}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     status = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
                 pooled, float(spatial_scale), _DTYPES[features.dtype],
                 torch.cuda.current_stream(features.device).cuda_stream)
-    _build.check(status, "odt_roi_align")
-    _build.LAUNCHES[_KERNEL] += 1
+    _build.check(status, f"odt_{name}")
+    _build.LAUNCHES[name] += 1
     return out
 
 
@@ -106,7 +136,7 @@ def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, pooled: int = 
                       spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """Batched RoIAlign: [B, H, W, C] x [B, R, 4] -> [B, R, P, P, C]."""
     if features.is_cuda:
-        return _roi_align_cuda(features, rois, pooled, spatial_scale)
+        return _launch(_KERNEL, features, rois, pooled, spatial_scale)
     return roi_align_reference(features, rois, pooled, spatial_scale)
 
 
@@ -135,41 +165,10 @@ def roi_align_fused2_reference(features: torch.Tensor, rois: torch.Tensor, poole
     return out
 
 
-def _roi_align_fused2_cuda(features, rois, pooled, spatial_scale):
-    if features.dtype not in _DTYPES:
-        raise TypeError(f"the RoIAlign kernel takes float32 or bfloat16, not {features.dtype}")
-    b, h, w, c = features.shape
-    if rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4:
-        raise ValueError(f"rois {tuple(rois.shape)} for features {tuple(features.shape)}")
-    if rois.device != features.device:
-        raise ValueError(f"rois are on {rois.device}, features on {features.device}")
-    lib = _build.load(_FUSED2)
-    max_w = lib.odt_roi_align_fused2_max_width()
-    if w > max_w or c % 2 or pooled > 32:
-        raise ValueError(f"the fused RoIAlign kernel takes W <= {max_w}, an even C and "
-                         f"pooled <= 32, not W={w}, C={c}, pooled={pooled}")
-    r = rois.shape[1]
-    features = features.contiguous()
-    if features.data_ptr() % 8:
-        features = features.clone()
-    rois = rois.float().contiguous()
-    out = torch.empty((b, r, pooled, pooled, c), device=features.device, dtype=features.dtype)
-    fn = lib.odt_roi_align_fused2
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    status = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
-                pooled, float(spatial_scale), _DTYPES[features.dtype],
-                torch.cuda.current_stream(features.device).cuda_stream)
-    _build.check(status, "odt_roi_align_fused2")
-    _build.LAUNCHES[_FUSED2] += 1
-    return out
-
-
 def roi_align_fused2(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
                      spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """Batched RoIAlign by separable contractions (kernel B4):
     [B, H, W, C] x [B, R, 4] -> [B, R, P, P, C]."""
     if features.is_cuda:
-        return _roi_align_fused2_cuda(features, rois, pooled, spatial_scale)
+        return _launch(_FUSED2, features, rois, pooled, spatial_scale)
     return roi_align_fused2_reference(features, rois, pooled, spatial_scale)

@@ -4,7 +4,10 @@ package's ``roi_align``, and the Pallas ``roi_align_batched`` /
 and a box wider than 8 * P feature cells, which hits the 8-sample clamp.
 
 Tolerance: fp32 sums in another order, atol 5e-5 / rtol 1e-5 (the JAX
-package's own interpret-mode tolerance for these kernels)."""
+package's own interpret-mode tolerance for these kernels).
+
+The argument check both CUDA wrappers run (``check_kernel_args``) is tested
+here too, on CPU tensors: it raises on what the kernels do not take."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,10 @@ from online_detection_tpu.ops.roi_align import roi_align as j_roi_align
 from online_detection_tpu.ops.roi_align import roi_align_batched as j_batched
 from online_detection_tpu.ops.roi_align import roi_align_fused2 as j_fused2
 from online_detection_tpu_torch.ops.roi_align import (
+    MAX_DIM,
+    MAX_POOLED,
+    MAX_SAMPLES,
+    check_kernel_args,
     interp_matrix,
     roi_align,
     roi_align_batched,
@@ -117,3 +124,78 @@ def test_fused2_keeps_the_feature_dtype(rng):
     want = roi_align_fused2(feats.to(torch.bfloat16).float(), rois, 3)
     # one rounding of the fp32 result: within half a bf16 ulp
     assert torch.all((got.float() - want).abs() <= want.abs() * 2.0 ** -8 + 1e-30)
+
+
+def _check_inputs(b=2, h=38, w=50, c=1024, r=5, dtype=torch.bfloat16):
+    return torch.zeros((b, h, w, c), dtype=dtype), torch.zeros((b, r, 4))
+
+
+def test_kernel_args_accept_the_main_path_shapes():
+    """The shapes the inference and harvest paths give kernels B3 and B4, in
+    both dtypes, a 1333-pixel-wide map (W = 84) and pooled 32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        check_kernel_args(*_check_inputs(dtype=dtype), 14)
+        check_kernel_args(*_check_inputs(h=50, w=84, dtype=dtype), 14)
+        check_kernel_args(*_check_inputs(c=8, dtype=dtype), 32)
+    check_kernel_args(*_check_inputs(c=4, dtype=torch.float32), 7)
+
+
+@pytest.mark.parametrize("case", [
+    "c_not_vector_bf16", "c_not_vector_f32", "c_below_vector", "w_too_wide", "h_too_tall",
+    "pooled_33", "pooled_0", "rois_batch", "rois_width", "rois_rank", "features_rank",
+    "misaligned",
+])
+def test_kernel_args_refuse_what_the_kernels_do_not_take(case):
+    """One check for both CUDA wrappers: C a whole number of 16-byte vectors
+    (8 bf16 or 4 fp32 channels), H and W <= 128, 1 <= pooled <= 32, rois
+    [B, R, 4] of the features' batch, 16-byte aligned contiguous features."""
+    feats, rois, pooled = *_check_inputs(), 14
+    if case == "c_not_vector_bf16":
+        feats = feats[..., :1020].contiguous()
+    elif case == "c_not_vector_f32":
+        feats = torch.zeros((2, 38, 50, 6))
+    elif case == "c_below_vector":
+        feats = feats[..., :4].contiguous()
+    elif case == "w_too_wide":
+        feats = torch.zeros((2, 38, MAX_DIM + 1, 8), dtype=torch.bfloat16)
+    elif case == "h_too_tall":
+        feats = torch.zeros((2, MAX_DIM + 1, 50, 8), dtype=torch.bfloat16)
+    elif case == "pooled_33":
+        pooled = MAX_POOLED + 1
+    elif case == "pooled_0":
+        pooled = 0
+    elif case == "rois_batch":
+        rois = torch.zeros((3, 5, 4))
+    elif case == "rois_width":
+        rois = torch.zeros((2, 5, 5))
+    elif case == "rois_rank":
+        rois = torch.zeros((10, 4))
+    elif case == "features_rank":
+        feats = feats[0]
+    elif case == "misaligned":  # a contiguous view that starts 2 bytes into its storage
+        flat = torch.zeros(2 * 38 * 50 * 1024 + 1, dtype=torch.bfloat16)
+        feats = flat[1:].view(2, 38, 50, 1024)
+        assert feats.is_contiguous() and feats.data_ptr() % 16
+    with pytest.raises(ValueError):
+        check_kernel_args(feats, rois, pooled)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_kernel_args_refuse_other_dtypes(dtype):
+    feats, rois = _check_inputs(c=16, dtype=dtype)
+    with pytest.raises(TypeError):
+        check_kernel_args(feats, rois, 14)
+
+
+def test_kernel_limits_match_the_cuda_header():
+    """The Python limits mirror roi::MAX_POOLED and roi::MAX_DIM, which size
+    the kernels' shared-memory tables."""
+    from pathlib import Path
+
+    import online_detection_tpu_torch
+
+    header = (Path(online_detection_tpu_torch.__file__).parent / "csrc"
+              / "roi_align_common.cuh").read_text()
+    assert f"constexpr int MAX_POOLED = {MAX_POOLED};" in header
+    assert f"constexpr int MAX_DIM = {MAX_DIM};" in header
+    assert f"constexpr int MAX_SAMPLES = {MAX_SAMPLES};" in header
