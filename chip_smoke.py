@@ -15,6 +15,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    The RoIAlign kernels B3 and B4 are also held, at full width, on
    adversarial boxes over a 38 x 50 and a 50 x 84 map, and their times are
    printed beside those of the kernels they replaced (``REPLACED_ROI_MS``).
+   The stem B2 (bf16 on the tensor cores, fp32 on the CUDA cores) is also
+   held at shapes its 8 x 16 tile does not divide and on inputs up to
+   |x| = 200, and its bf16 kernel must run bf16 ``HMMA``.
 3. Inference: drives ``detect_batched`` at full width (R-50-C4 trunk from a
    numpy seed, 15 anchors, 21 classes, FALKON widths of the flagship
    configuration) on 3 batches of 8 synthetic 608x800 canvases, checks the
@@ -75,6 +78,10 @@ SIMT_B1_MS = {"rpn": 11.52, "detector": 6.64, "mask": 1.63, "mining rpn": 8.78,
 # contracted H first per pooled row; tools/roi_variants.py keeps both and
 # times them beside the new ones)
 REPLACED_ROI_MS = {"proposals": 2.030, "detections": 0.767, "harvest": 1.631}
+# B2 per inference batch (bf16, [8, 608, 800, 3]) on the same kind of card
+# with the SIMT fp32 kernel the bf16 route replaced (PERF.md, section 6); the
+# fp32 route still runs it
+SIMT_B2_MS = 0.726
 
 # flagship on-line widths (OnlineTrainConfig of the JAX package's online pipeline)
 N_CLASSES, N_ANCHORS = 21, 15
@@ -150,24 +157,25 @@ def torch_isfinite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
-def b1_sass() -> dict:
-    """B1's tensor-core instructions in the built library (``cuobjdump
-    -sass``): fails unless the mmv kernel runs TF32 ``HGMMA``."""
+def tensor_core_sass(lib: str, kernel: str, opcode: str, dtype: str) -> dict:
+    """A kernel's tensor-core instructions in its built library (``cuobjdump
+    -sass``): fails unless ``kernel`` runs ``opcode`` on ``dtype`` operands
+    and nothing else on the tensor cores."""
     from online_detection_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path("gaussian_mmv"))],
+    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
-    kernel, lines = "", {}
+    name, lines = "", {}
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = line.split("Function :")[1].strip()
-        elif "HGMMA" in line:
-            lines.setdefault(kernel, []).append(line.split(";")[0].split("*/")[-1].strip())
-    hgmma = [ln for k, ls in lines.items() if "mmv_tf32x3_kernel" in k for ln in ls]
-    if not hgmma or not all(".TF32" in ln for ln in hgmma):
-        fail(f"the mmv kernel runs no TF32 HGMMA: {lines}")
-    return {"hgmma_count": len(hgmma), "first": hgmma[0]}
+            name = line.split("Function :")[1].strip()
+        elif opcode in line:
+            lines.setdefault(name, []).append(line.split(";")[0].split("*/")[-1].strip())
+    found = [ln for k, ls in lines.items() if kernel in k for ln in ls]
+    if not found or not all(dtype in ln for ln in found):
+        fail(f"{kernel} runs no {dtype} {opcode}: {lines}")
+    return {"count": len(found), "first": found[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +352,9 @@ def check_stem(params, inputs, report):
     xf = x.float()
     ref32 = stem_reference(xf, *args)
     check_close("stem_pool", stem_fused(xf, *args), ref32, 1e-5 * ref32.abs().max(), report)
-    ms = timed(lambda: stem_fused(x, *args), 10)
+    ms = timed(lambda: stem_fused(x, *args), 20)
     plain = timed(lambda: stem_reference(x, *args), 3)
+    f32_ms = timed(lambda: stem_fused(xf, *args), 10)
     b, h, w, _ = x.shape
     h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
     flops = 2.0 * b * h2 * w2 * 64 * 147
@@ -355,9 +364,47 @@ def check_stem(params, inputs, report):
     bound, by = bound_of(flops, nbytes, PEAK_BF16_FLOPS)
     report["stem_pool"].update(
         ms=ms, plain_ms=plain, bound_ms=bound, flops=flops, bytes=nbytes, bound_by=by,
+        f32_route_ms=f32_ms, simt_bf16_ms=SIMT_B2_MS,
         tolerance="bf16: 1 ulp + 1e-5 max|ref|; f32: 1e-5 max|ref|", shape=list(x.shape))
-    print(f"  stem_pool {list(x.shape)} bf16: {ms:.3f} ms (plain {plain:.3f} ms, "
-          f"bound {bound:.3f} ms, {by})", flush=True)
+    print(f"  stem_pool {list(x.shape)} bf16: {ms:.4f} ms (SIMT kernel {SIMT_B2_MS:.3f} ms; "
+          f"plain {plain:.3f} ms; bound {bound:.4f} ms, {by}: {bound / ms:.1%} of it); "
+          f"f32 route (SIMT) {f32_ms:.3f} ms", flush=True)
+
+
+def check_stem_shapes(seed, report):
+    """B2 against its plain version, bf16 and f32, at shapes whose pooled
+    grid the bf16 kernel's 8 x 16 tile does not divide or whose conv rows or
+    columns are odd, and on an input of large magnitude (|x| up to 200, for
+    the fp32 accumulation). Random weights, scale and bias from the seed."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.ops.stem_pool import stem_fused, stem_reference
+
+    rng = np.random.default_rng(seed + 2)
+
+    def cuda(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    args = (cuda(rng.normal(size=(64, 3, 7, 7)) * 0.05), cuda(rng.uniform(0.5, 1.5, 64)),
+            cuda(rng.normal(size=64) * 0.1))
+    cases = [((1, 8, 8, 3), 3.0), ((2, 37, 53, 3), 3.0), ((3, 600, 804, 3), 3.0),
+             ((2, 64, 96, 3), 200.0)]
+    worst = {}
+    for shape, mag in cases:
+        x = cuda(rng.uniform(-mag, mag, size=shape))
+        for dt in (torch.bfloat16, torch.float32):
+            xd = x.to(dt)
+            got, ref = stem_fused(xd, *args), stem_reference(xd, *args)
+            ref32 = ref.float()
+            tol = 1e-5 * ref32.abs().max()
+            if dt == torch.bfloat16:
+                tol = bf16_ulp(ref32) + tol
+            check_close("stem_pool", got, ref, tol, report)
+            key = f"{'x'.join(map(str, shape[:3]))} |x|<={mag:g} {str(dt).split('.')[-1]}"
+            worst[key] = float((got.float() - ref32).abs().max())
+    report["stem_pool"]["adversarial_max_abs_err"] = worst
+    print(f"  stem_pool at ragged and odd shapes and |x| <= 200: max err {worst}", flush=True)
 
 
 def roi_ops(rois, h, w, c, pooled=14, scale=1.0 / 16.0):
@@ -942,9 +989,12 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {k}: {line.strip()}", flush=True)
-    sass = b1_sass()
-    print(f"  gaussian_mmv SASS: {sass['hgmma_count']} HGMMA in mmv_tf32x3_kernel, e.g. "
-          f"{sass['first']}", flush=True)
+    sass = {"gaussian_mmv": tensor_core_sass("gaussian_mmv", "mmv_tf32x3_kernel", "HGMMA",
+                                             ".TF32"),
+            "stem_pool": tensor_core_sass("stem_pool", "stem_kernel_mma", "HMMA", ".BF16")}
+    for k, v in sass.items():
+        print(f"  {k} SASS: {v['count']} tensor-core instructions, e.g. {v['first']}",
+              flush=True)
 
     rng = np.random.default_rng(args.seed)
     b, (h, w) = BATCH_SIZE, CANVAS
@@ -968,6 +1018,7 @@ def main(argv=None) -> int:
     with torch.inference_mode(), ieee_fp32():
         check_mmv(inputs, report)
         check_stem(params, inputs, report)
+        check_stem_shapes(args.seed, report)
         check_roi(inputs, report)
         check_roi_adversarial(args.seed, report)
     del inputs
@@ -1057,7 +1108,7 @@ def main(argv=None) -> int:
          "small_training_reference": report["small_training_reference"],
          "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,
-         "b1_sass": sass,
+         "tensor_core_sass": sass,
          "seconds": time.time() - t_start}, indent=1))
     print(json.dumps(line), flush=True)
     print(card, flush=True)

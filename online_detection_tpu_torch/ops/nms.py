@@ -39,6 +39,9 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     scores [..., N], valid [..., N] bool."""
     n = boxes.shape[-2]
     masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    # A NaN score sorts after every number and after the invalid rows, as the
+    # JAX package's argsort(-scores) orders it (a descending sort puts it first).
+    masked = torch.where(torch.isnan(masked), torch.full_like(masked, -float("inf")), masked)
     _, order = sort_desc(masked)
     sboxes = torch.gather(boxes, -2, order[..., None].expand(*order.shape, 4))
     svalid = torch.gather(valid, -1, order)

@@ -238,6 +238,12 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         raise ValueError(f"reservoirs are on {state.det_neg.rows.device}; expected {dev}")
     timings = {} if timings is None else timings
 
+    def start():
+        # Queued work (the feature statistics) ends before a stage's clock
+        # starts; each clock spans what the JAX package's spans.
+        _sync(dev)
+        return time.time()
+
     def done(stage, t0):
         _sync(dev)
         timings[stage] = time.time() - t0
@@ -257,10 +263,10 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         if cfg.with_rpn and state.rpn_neg is not None:
             pos = state.rpn_pos.rows
             pos_valid = state.rpn_pos.valid_mask()
-            t0 = time.time()
             stats_rpn = dacc.device_feature_stats_pool(
                 state.rpn_pos, state.rpn_neg, pos_fraction=cfg.pos_fraction_feat_stats,
                 generator=generator)
+            t0 = start()
             models = _train_head_chunked(
                 state.rpn_neg, pos, pos_valid, mb(cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam),
                 stats_rpn, cfg.iterations, cfg.batch_size,
@@ -284,7 +290,6 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             pos = pos_valid = None
 
         # ---- detector ----
-        t0 = time.time()
         packed = state.det_coxy.rows[0]  # [cap, d + 5]
         d = packed.shape[1] - 5
         coxy_x, coxy_y, coxy_c = packed[:, :d], packed[:, d:d + 4], packed[:, d + 4]
@@ -311,6 +316,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         stats_det = dacc.device_feature_stats_pool(
             det_pos_pool, state.det_neg, pos_fraction=cfg.pos_fraction_feat_stats,
             generator=generator)
+        t0 = start()
         reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
             else coxy_x
         det_rls = rls_fit_grouped(reg_x, coxy_y, coxy_c, coxy_valid.float(), cfg.num_classes,
@@ -332,11 +338,11 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         # ---- segmentation ----
         online_mask = None
         if cfg.with_segmentation and state.mask_pos is not None:
-            t0 = time.time()
             seg_iters = max(1, math.ceil(state.mask_neg.rows.shape[1] / cfg.segm_batch_size))
             stats_seg = dacc.device_feature_stats_pool(
                 state.mask_pos, state.mask_neg, pos_fraction=cfg.pos_fraction_feat_stats,
                 generator=generator)
+            t0 = start()
             seg_falkon = _train_head_chunked(
                 state.mask_neg, state.mask_pos.rows, state.mask_pos.valid_mask(),
                 mb(cfg.segm_m, cfg.segm_sigma, cfg.segm_lam), stats_seg, seg_iters,

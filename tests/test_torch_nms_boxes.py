@@ -79,6 +79,43 @@ def test_batched_class_nms_matches_jax(rng):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _nan_cases():
+    """(boxes, scores, valid) with NaN scores: a NaN sorts after every number
+    and after the invalid rows in the JAX package."""
+    three = np.array([[0, 0, 10, 10], [1, 1, 11, 11], [50, 50, 60, 60]], np.float32)
+    rng = np.random.default_rng(11)
+    bx = _boxes(rng, 24, hi=40)
+    sc = rng.integers(0, 5, size=24).astype(np.float32)
+    sc[[3, 9, 17]] = np.nan
+    valid = rng.uniform(size=24) > 0.25
+    cls_bx = np.stack([_boxes(rng, 20, hi=40) for _ in range(3)])
+    cls_sc = rng.integers(0, 4, size=(3, 20)).astype(np.float32)
+    cls_sc[1] = np.nan  # a class whose fit failed: every score NaN
+    cls_sc[2, [0, 5]] = np.nan
+    return {
+        "three_boxes": (three, np.array([0.9, np.nan, 0.3], np.float32), np.ones(3, bool)),
+        "nan_disjoint": (three, np.array([0.2, 0.9, np.nan], np.float32), np.ones(3, bool)),
+        "nan_and_invalid": (bx, sc, valid),
+        "batched_classes": (cls_bx, cls_sc, rng.uniform(size=(3, 20)) > 0.2),
+    }
+
+
+@pytest.mark.parametrize("case", list(_nan_cases()))
+def test_nms_with_nan_scores_matches_jax(case):
+    bx, sc, valid = _nan_cases()[case]
+    args = (torch.from_numpy(bx), torch.from_numpy(sc), torch.from_numpy(valid))
+    jargs = (jnp.asarray(bx), jnp.asarray(sc), jnp.asarray(valid))
+    if bx.ndim == 3:
+        want_mask = jax.vmap(jnms.nms_mask, in_axes=(0, 0, 0, None))(*jargs, 0.3)
+        want = jnms.batched_class_nms(*jargs, 0.3, 8)
+    else:
+        want_mask = jnms.nms_mask(*jargs, 0.3)
+        want = jnms.nms(*jargs, 0.3, 8)
+    np.testing.assert_array_equal(nms.nms_mask(*args, 0.3).numpy(), np.asarray(want_mask))
+    for g, w in zip(nms.nms(*args, 0.3, 8), want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_top_k_breaks_ties_by_lower_index():
     vals, idx = nms.top_k(torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0]]), 4)
     assert idx.tolist() == [[1, 2, 4, 3]]

@@ -15,9 +15,17 @@ order); head scores on probe rows within 2e-3 and RLS predictions within
 2e-3 (fp32 Cholesky solves of M=160 systems); detections: equal validity
 and labels, scores within 2e-3, boxes within 1e-2 px; mask probabilities
 within 1e-2 (the segmenter's ridge is 1e-6, so its per-pixel solve carries
-fp32 rounding further than the other heads')."""
+fp32 rounding further than the other heads').
+
+Both packages train with an ``output_dir``: their ``result.txt`` lines, and
+the port's ``timings`` keys, name the same stages in the same order. The
+port's stage clocks are recorded as events, to show that each clock that
+follows the feature statistics starts after them and after a device sync,
+where the JAX package starts it."""
 
 import functools
+import re
+import time
 
 import jax
 import jax.numpy as jnp
@@ -89,9 +97,10 @@ class TinyTeachingSet:
 
 
 @pytest.fixture(scope="module")
-def slice_runs():
+def slice_runs(tmp_path_factory):
     """(JAX reservoirs, JAX models, JAX detections, port reservoirs, port
-    models, port detections)."""
+    models, port detections); ``TRAINING`` gets each package's result.txt
+    lines, the port's timings and its clock events."""
     rng = np.random.default_rng(7)
     tree = narrow_tree(rng)
     jtree = jax.tree_util.tree_map(jnp.asarray, tree)
@@ -112,7 +121,9 @@ def slice_runs():
             dcfg=jdet.DetectorConfig(**DCFG), **HARVEST)
         jcounts = {k: np.asarray(getattr(jstate, k).counts) for k in _POOLS}
         jrows = {k: np.asarray(getattr(jstate, k).rows) for k in _POOLS}
-        jonline = j_dpipe.train_online_modules_device(jax.random.key(2), [jstate], jcfg)
+        jdir = tmp_path_factory.mktemp("jax_train")
+        jonline = j_dpipe.train_online_modules_device(jax.random.key(2), [jstate], jcfg,
+                                                      output_dir=str(jdir))
 
         cfg = OnlineTrainConfig(**CFG)
         gen = torch.Generator().manual_seed(0)
@@ -121,9 +132,15 @@ def slice_runs():
             device="cpu", **HARVEST)
         counts = {k: getattr(state, k).counts.numpy() for k in _POOLS}
         rows = {k: getattr(state, k).rows.numpy().copy() for k in _POOLS}
-        online = dpipe.train_online_modules_device(gen, [state], cfg, device="cpu")
+        pdir = tmp_path_factory.mktemp("port_train")
+        events, timings = [], {}
+        _record_clock_events(mp, events)
+        online = dpipe.train_online_modules_device(gen, [state], cfg, output_dir=str(pdir),
+                                                   device="cpu", timings=timings)
     finally:
         mp.undo()
+    TRAINING.update(jax_lines=_result_lines(jdir), port_lines=_result_lines(pdir),
+                    timings=timings, events=events)
 
     images = np.stack([ds.load_image(i) for i in range(2)])
     sizes = np.array([[W, H]] * 2, np.float32)
@@ -133,6 +150,31 @@ def slice_runs():
     pd = detector.detect_batched(params, online, anchors, images, sizes,
                                  detector.DetectorConfig(**DCFG), True, device="cpu")
     return (jcounts, jrows, jonline, jd), (counts, rows, online, pd)
+
+
+TRAINING = {}
+
+
+def _record_clock_events(mp, events):
+    """Log the port's feature statistics, device syncs and clock reads."""
+    stats, sync = dacc.device_feature_stats_pool, dpipe._sync
+
+    def logged(name, fn):
+        def call(*args, **kwargs):
+            events.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    clock = type("Clock", (), {"time": staticmethod(logged("clock", time.time))})
+    mp.setattr(dacc, "device_feature_stats_pool", logged("stats", stats))
+    mp.setattr(dpipe, "_sync", logged("sync", sync))
+    mp.setattr(dpipe, "time", clock)
+
+
+def _result_lines(out_dir):
+    """result.txt's lines with the times taken out."""
+    text = (out_dir / "result.txt").read_text()
+    return [re.sub(r"\d+min:\d+s", "T", line) for line in text.splitlines()]
 
 
 _POOLS = ("rpn_neg", "rpn_pos", "rpn_coxy_y", "det_neg", "det_pos", "det_coxy", "mask_pos",
@@ -183,3 +225,27 @@ def test_detections_with_trained_models_match(slice_runs):
     np.testing.assert_allclose(gd.scores.numpy(), np.asarray(wd.scores), atol=2e-3)
     np.testing.assert_allclose(gd.boxes.numpy(), np.asarray(wd.boxes), atol=1e-2)
     np.testing.assert_allclose(gm.numpy(), np.asarray(wm), atol=1e-2)
+
+
+_STAGE_LINES = {
+    "rpn_falkon": "RPN's Online Classifier training time: T ",
+    "rpn_rls": "RPN's Online Region Refiner training time: T ",
+    "det_rls": "Detector's Online Region Refiner training time: T ",
+    "det_falkon": "Detector's Online Classifier training time: T ",
+    "segm_falkon": "Online Segmentation training time: T ",
+}
+
+
+def test_training_stages_and_result_lines_match_jax(slice_runs):
+    assert TRAINING["port_lines"] == TRAINING["jax_lines"]
+    stage_lines = [line for line in TRAINING["jax_lines"] if line.strip()]
+    assert list(TRAINING["timings"]) == list(_STAGE_LINES)
+    assert stage_lines == list(_STAGE_LINES.values())
+
+
+def test_stage_clocks_start_after_feature_stats_and_a_sync(slice_runs):
+    events = TRAINING["events"]
+    starts = [i for i, e in enumerate(events) if e == "stats"]
+    assert len(starts) == 3  # rpn_falkon, det_rls, segm_falkon
+    for i in starts:
+        assert events[i + 1:i + 3] == ["sync", "clock"], events
