@@ -25,7 +25,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    count, traces one more batch with ``torch.profiler``, and checks the
    card's result against the CPU's plain path on a small input.
 4. Training: ``harvest_dataset_device`` over 64 synthetic 800x600 teaching
-   images (one coloured ellipse each, the 21 classes in turn) at batch 8,
+   images (one coloured ellipse each, 64-192 px a side, the 21 classes in
+   turn) at batch 8,
    then ``train_online_modules_device`` with the flagship
    ``OnlineTrainConfig``, then one ``detect_batched`` batch with the trained
    models; checks the launch counts of each path, the models and the
@@ -33,20 +34,35 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    against their plain versions; traces one harvest batch; and runs harvest
    and training on a few small canvases on the card and on the CPU with the
    same draws.
-5. Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
-   and, as the last line, ``{"ok": true, "device": {...}}``.
+5. The inference stage: ``run_inference`` with the trained models over 32
+   held-out synthetic 800x600 images at batch 8 (4 batches, each kernel's
+   launch counter must rise by 4 batches' count), scored by VOC07 det and
+   segm mAP@0.5 (finite, in [0, 1], det mAP not 0 and not under
+   ``DET_MAP_FLOOR``); prints the mAPs, the per-class APs, images/s and ms
+   per image (wall clock, loading and scoring included) and the seconds in
+   ``voc_eval.evaluate``; traces one more call over one batch; and runs
+   ``run_inference`` on 4 small held-out canvases on the card and on the
+   CPU, with the detections and with the GT boxes substituted (same
+   detections per image and labels, mAPs within 1e-3).
+6. Prints one ``{"kernels": [...]}`` line (launches counted over every
+   path), the card's name and power limit, and, as the last line,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero, with no result line. Details
 (compiler logs, per-call timings) go to ``chiprun_out/chip_smoke.json``, the
 traced batches' device time by kernel and idle share to
-``chiprun_out/detect_profile.txt`` and ``chiprun_out/harvest_profile.txt``.
+``chiprun_out/detect_profile.txt``, ``chiprun_out/harvest_profile.txt`` and
+``chiprun_out/inference_profile.txt``, and ``run_inference``'s ``result.txt``
+and log to ``chiprun_out/inference/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -90,6 +106,18 @@ CANVAS = (608, 800)
 BATCHES, BATCH_SIZE = 3, 8
 # teaching images of 800x600 need no resize: min side 600, canvas 608x800
 TRAIN_IMAGES, TRAIN_HW = 64, (600, 800)
+# held-out images scored by run_inference (4 batches of 8), from seed + 1
+HELD_OUT_IMAGES = 32
+# sides of the teaching and held-out objects, in pixels. With the trunk's
+# random weights, what the on-line RPN learns to propose depends on the
+# objects' sizes: with sides up to 3/4 of the image its proposals miss the
+# held-out objects and det mAP@0.5 is 0 (tools/map_by_object_size.py and
+# PERF.md hold the sweep that picked this range)
+OBJECT_SIDES = (64, 192)
+# det mAP@0.5 on them must reach this: half of the 0.3889 of its first run
+# on the card (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, section 6), so that a
+# port fault that loses most detections fails while bf16 noise does not
+DET_MAP_FLOOR = 0.19
 
 
 def fail(msg: str):
@@ -601,7 +629,7 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
     device_us = sum(v[0] for v in by_name.values())
     groups = {k: sum(v[0] for n, v in by_name.items() if k in n)
               for k in ("mmv_tf32x3_kernel", "split_tf32_kernel", "stem_kernel",
-                        "roi_align_kernel", "roi_align_fused2_kernel")}
+                        "roi_align_kernel", "roi_align_fused2_kernel", "Memcpy")}
     summary = {"card": card, "wall_ms": wall_us / 1e3, "kernel_ms": device_us / 1e3,
                "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us if wall_us else None,
                "port_kernels_ms": {k: v / 1e3 for k, v in groups.items()},
@@ -621,26 +649,31 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
 
 class _Anno:
     def __init__(self, boxes, labels):
+        import numpy as np
+
         self.boxes, self.labels = boxes, labels
+        self.difficult = np.zeros(len(labels), bool)
 
 
 class SyntheticTeachingSet:
     """In-memory teaching images: noise with one coloured ellipse each, its
     box and mask; image i shows class i % classes + 1. Made with numpy from
     the seed, all at construction (set-up), so loading costs the harvest
-    nothing but a copy."""
+    nothing but a copy. ``classes`` names the classes for the evaluator
+    (index 0 is the background), and no object is difficult."""
 
-    def __init__(self, n, hw, classes, seed, min_side=64):
+    def __init__(self, n, hw, classes, seed, min_side=64, max_side=None):
         import numpy as np
 
         rng = np.random.default_rng(seed)
         h, w = hw
+        self.classes = ("__background__",) + tuple(f"object_{c + 1}" for c in range(classes))
         self.images = rng.integers(0, 60, (n, h, w, 3), dtype=np.uint8)
         self.boxes, self.labels, self.masks = [], [], []
         yy, xx = np.ogrid[:h, :w]
-        for i in range(n):
-            bw = int(rng.integers(min_side, w * 3 // 4))
-            bh = int(rng.integers(min_side, h * 3 // 4))
+        for i in range(n):  # sides in [min_side, max_side), else up to 3/4 of the image's
+            bw = int(rng.integers(min_side, max_side or w * 3 // 4))
+            bh = int(rng.integers(min_side, max_side or h * 3 // 4))
             x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
             ell = ((xx - x1 - bw / 2) / (bw / 2)) ** 2 + ((yy - y1 - bh / 2) / (bh / 2)) ** 2 <= 1
             cls = i % classes
@@ -661,6 +694,12 @@ class SyntheticTeachingSet:
 
     def load_masks(self, i, anno=None):
         return self.masks[i].astype("float32")
+
+
+def teaching_set(n, seed):
+    """n teaching (or, from another seed, held-out) images of TRAIN_HW whose
+    objects' sides lie in OBJECT_SIDES."""
+    return SyntheticTeachingSet(n, TRAIN_HW, N_CLASSES, seed, *OBJECT_SIDES)
 
 
 def mining_launches(cfg, gt_cap, batch, mask_pix=64):
@@ -815,7 +854,7 @@ def training_phase(params, seed, card, report, out_dir):
     from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
 
     cfg, dcfg = OnlineTrainConfig(), DetectorConfig()
-    ds = SyntheticTeachingSet(TRAIN_IMAGES, TRAIN_HW, cfg.num_classes, seed)
+    ds = teaching_set(TRAIN_IMAGES, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     n_batches = -(-TRAIN_IMAGES // BATCH_SIZE)
     paths = {}
@@ -875,7 +914,7 @@ def training_phase(params, seed, card, report, out_dir):
     print(f"detect_batched with the trained models: {n_valid} valid detections", flush=True)
 
     # one harvest batch traced: the entry point on the first 8 images
-    first = SyntheticTeachingSet(BATCH_SIZE, TRAIN_HW, cfg.num_classes, seed)
+    first = teaching_set(BATCH_SIZE, seed)
     profiled = profile_batch(
         lambda: harvest_dataset_device(gen, params, first, cfg, CANVAS, dcfg=dcfg,
                                        batch_size=BATCH_SIZE),
@@ -890,6 +929,143 @@ def training_phase(params, seed, card, report, out_dir):
         "truncation": meta["truncation"], "valid_detections": n_valid,
         "harvest_profile": profiled}
     return online, ds, paths
+
+
+# ---------------------------------------------------------------------------
+# the inference stage: run_inference and its VOC07 scoring
+
+
+@contextlib.contextmanager
+def timed_evaluate(seconds: list):
+    """A context in which ``voc_eval.evaluate`` appends its seconds to
+    ``seconds`` (host clock; the scoring runs on the host)."""
+    from online_detection_tpu_torch.data.evaluation import voc_eval
+
+    evaluate = voc_eval.evaluate
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return evaluate(*args, **kwargs)
+        finally:
+            seconds.append(time.time() - t0)
+
+    voc_eval.evaluate = timed
+    try:
+        yield
+    finally:
+        voc_eval.evaluate = evaluate
+
+
+def check_scores(results, where: str):
+    """det and segm mAP@0.5 finite and within [0, 1]; det mAP not 0."""
+    import math
+
+    for k in ("det_map_0.5", "segm_map_0.5"):
+        v = results[k]
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            fail(f"{where}: {k} = {v}")
+    if results["det_map_0.5"] == 0.0:
+        fail(f"{where}: det mAP@0.5 is 0.0: the trained models detect nothing")
+
+
+def inference_phase(params, trained, seed, card, report, out_dir):
+    """``run_inference`` over HELD_OUT_IMAGES held-out 800x600 images with the
+    trained models at batch 8, scored by VOC07 det and segm mAP@0.5; the
+    launch counts are read right after it. One more call over one batch is
+    traced."""
+    import torch
+
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.ops import _build
+    from online_detection_tpu_torch.pipelines.online_pipeline import run_inference
+
+    test_set = teaching_set(HELD_OUT_IMAGES, seed + 1)
+    n_batches = -(-HELD_OUT_IMAGES // BATCH_SIZE)
+    shutil.rmtree(out_dir / "inference", ignore_errors=True)  # result.txt appends
+    eval_s = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    with timed_evaluate(eval_s):
+        results, preds = run_inference(params, trained, test_set, CANVAS, DetectorConfig(),
+                                       batch_size=BATCH_SIZE,
+                                       output_dir=str(out_dir / "inference"))
+    wall_s = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    want = {k: n_batches * v for k, v in EXPECTED_LAUNCHES.items()}
+    if launches != want:
+        fail(f"run_inference launched {launches}, expected {want}")
+    if len(preds) != HELD_OUT_IMAGES:
+        fail(f"run_inference gave {len(preds)} predictions for {HELD_OUT_IMAGES} images")
+    check_scores(results, "run_inference")
+    if results["det_map_0.5"] < DET_MAP_FLOOR:
+        fail(f"det mAP@0.5 {results['det_map_0.5']:.4f} under its floor {DET_MAP_FLOOR}")
+    n_dets = [len(p["labels"]) for p in preds]
+    per_class = {k: [round(float(a), 4) for a in results[k][1:]]
+                 for k in ("det_ap_0.5", "segm_ap_0.5")}
+    print(f"run_inference {HELD_OUT_IMAGES} held-out images of {TRAIN_HW[1]}x{TRAIN_HW[0]} at "
+          f"batch {BATCH_SIZE}: det mAP@0.5 {results['det_map_0.5']:.4f}, segm mAP@0.5 "
+          f"{results['segm_map_0.5']:.4f}; {HELD_OUT_IMAGES / wall_s:.2f} images/s, "
+          f"{wall_s / HELD_OUT_IMAGES * 1e3:.2f} ms/image (wall clock, loading and scoring "
+          f"included), of it evaluate {sum(eval_s):.3f} s; {sum(n_dets)} detections; "
+          f"launches {launches} on {card}", flush=True)
+    print(f"  per-class AP@0.5 {json.dumps(per_class)}", flush=True)
+
+    first = teaching_set(BATCH_SIZE, seed + 1)
+    profiled = profile_batch(
+        lambda: run_inference(params, trained, first, CANVAS, DetectorConfig(),
+                              batch_size=BATCH_SIZE),
+        out_dir / "inference_profile.txt", card)
+    print(f"profile of run_inference over one batch: {json.dumps(profiled)}", flush=True)
+    report["inference"] = {
+        "card": card, "images": HELD_OUT_IMAGES, "batch": BATCH_SIZE,
+        "det_map_0.5": results["det_map_0.5"], "segm_map_0.5": results["segm_map_0.5"],
+        "per_class_ap": per_class, "wall_s": wall_s,
+        "images_per_s": HELD_OUT_IMAGES / wall_s,
+        "ms_per_image": wall_s / HELD_OUT_IMAGES * 1e3, "evaluate_s": sum(eval_s),
+        "detections": n_dets, "launches": launches, "profile": profiled}
+    return launches
+
+
+def small_inference_reference_check(params, trained, seed, dev, report):
+    """``run_inference`` with the trained models on 4 held-out images at a
+    small canvas, on the card (kernels, fp32 trunk) and on the CPU (plain
+    versions), with the detections and with the GT boxes substituted (the
+    models were taught larger objects than these, so only the second mode
+    scores above 0): the same valid detections per image, with the same
+    labels (as sorted lists: near-equal scores may swap ranks), and det and
+    segm mAP@0.5 within 1e-3."""
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.pipelines.online_pipeline import run_inference
+
+    h, w = 128, 192  # needs no resize at min_size 128, max_size 192
+    ds = SyntheticTeachingSet(4, (h, w), N_CLASSES, seed + 1, min_side=24)
+    dcfg = DetectorConfig(pre_nms_top_n=200, post_nms_top_n=50, detections_per_img=20,
+                          compute_dtype="float32")
+
+    cpu = (copy.deepcopy(params).to("cpu"), trained.to("cpu"))
+    report["small_inference_reference"] = {}
+    for mode, gt_boxes in (("detections", False), ("gt_boxes", True)):
+        def run(device, p, o):
+            return run_inference(p, o, ds, (h, w), dcfg, min_size=h, max_size=w, batch_size=4,
+                                 eval_segm_with_gt_bboxes=gt_boxes, device=device)
+
+        rg, pg = run(dev, params, trained)
+        rc, pc = run("cpu", *cpu)
+        err = {"n_valid": [[len(p["labels"]) for p in pg], [len(p["labels"]) for p in pc]],
+               "labels_equal": all(sorted(a["labels"].tolist()) == sorted(b["labels"].tolist())
+                                   for a, b in zip(pg, pc))}
+        for k in ("det_map_0.5", "segm_map_0.5"):
+            err[k] = [rg[k], rc[k]]
+        report["small_inference_reference"][mode] = err
+        print(f"  run_inference ({mode}), card vs CPU plain path on 4x{h}x{w}: {err}",
+              flush=True)
+        if err["n_valid"][0] != err["n_valid"][1] or not err["labels_equal"]:
+            fail(f"card and CPU disagree on detections: {err}")
+        for k in ("det_map_0.5", "segm_map_0.5"):
+            if not abs(rg[k] - rc[k]) <= 1e-3:
+                fail(f"card and CPU disagree on {k}: {err}")
 
 
 def small_training_reference_check(params, dev, report):
@@ -1056,7 +1232,7 @@ def main(argv=None) -> int:
 
     print("training path:", flush=True)
     with torch.inference_mode(), ieee_fp32():
-        ds = SyntheticTeachingSet(TRAIN_IMAGES, TRAIN_HW, N_CLASSES, args.seed)
+        ds = teaching_set(TRAIN_IMAGES, args.seed)
         c4, rois = harvest_inputs(params, ds, cfg, dev)
         check_fused2(c4, rois, report)
         del c4, rois
@@ -1065,10 +1241,13 @@ def main(argv=None) -> int:
         from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
 
         check_mmv_mining(trained, OnlineTrainConfig(), report, rng)
+    print("inference stage:", flush=True)
+    infer_launches = inference_phase(params, trained, args.seed, card, report, out_dir)
+    small_inference_reference_check(params, trained, args.seed, dev, report)
     del trained
     torch.cuda.empty_cache()
     small_training_reference_check(params, dev, report)
-    for path in train_paths.values():
+    for path in list(train_paths.values()) + [infer_launches]:
         for k, n in path.items():
             launches[k] += n
 
@@ -1103,7 +1282,8 @@ def main(argv=None) -> int:
         "not_ported": []}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": {k: report[k] for k in COUNTERS},
-         "training": report["training"],
+         "training": report["training"], "inference": report["inference"],
+         "small_inference_reference": report["small_inference_reference"],
          "small_reference": report["small_reference"],
          "small_training_reference": report["small_training_reference"],
          "ms_per_batch": times, "launches": launches,

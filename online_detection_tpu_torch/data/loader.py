@@ -1,8 +1,10 @@
-"""Canvas loading for the harvest loop (counterpart of ``data/loader.py``).
+"""Canvas loading for the harvest and inference loops (counterpart of
+``data/loader.py``).
 
 The synchronous path only: each ``get`` decodes, resizes and pads one image
 on the calling thread. The JAX package's native threaded prefetcher
-(``utils/native_io.py``) has no binding in the port yet.
+(``utils/native_io.py``) has no binding in the port yet, so ``native`` is
+always False.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ class CanvasLoader:
         self.canvas_hw = canvas_hw
         self.min_size = min_size
         self.max_size = max_size
+
+    @property
+    def native(self) -> bool:
+        return False
 
     def get(self, index: int):
         return transforms.preprocess_image_u8(self.dataset.load_image(index), self.canvas_hw,

@@ -219,11 +219,21 @@ def detect_batched(
 
 
 def detect(params, online, anchors, image, image_size, cfg: DetectorConfig = DetectorConfig(),
-           with_masks: bool = True, device=None):
-    """Single-image inference: ``detect_batched`` on a batch of one."""
+           with_masks: bool = True,
+           gt_boxes=None,  # [K, 4] canvas coords
+           gt_labels=None,  # [K]
+           gt_valid=None,  # [K] bool
+           device=None):
+    """Single-image inference: ``detect_batched`` on a batch of one. With
+    ``gt_boxes`` the detections are replaced by the ground truth (labels from
+    it, score 1) before the mask head."""
     image = torch.as_tensor(image)[None]
     size = torch.as_tensor(image_size, dtype=torch.float32)[None]
+    if gt_boxes is not None:
+        gt_boxes, gt_labels, gt_valid = (torch.as_tensor(g)[None]
+                                         for g in (gt_boxes, gt_labels, gt_valid))
     dets, masks, props, pvalid = detect_batched(params, online, anchors, image, size, cfg,
-                                                with_masks, device=device)
+                                                with_masks, gt_boxes, gt_labels, gt_valid,
+                                                device=device)
     one = Detections(dets.boxes[0], dets.scores[0], dets.labels[0], dets.valid[0])
     return one, None if masks is None else masks[0], props[0], pvalid[0]

@@ -43,6 +43,41 @@ def test_fresh_import_loads_no_jax():
     assert out[1] == "[]", out
 
 
+# modules of the inference stage, and what each must import without
+_STAGE_MODULES = {
+    "online_detection_tpu_torch.config.config": "yaml",
+    "online_detection_tpu_torch.data.datasets.icubworld": "PIL",
+    "online_detection_tpu_torch.data.datasets.ycb_video": "PIL",
+    "online_detection_tpu_torch.data.datasets.synthetic": "PIL",
+    "online_detection_tpu_torch.data.evaluation.voc_eval": None,
+    "online_detection_tpu_torch.data.evaluation.coco_rle": None,
+    "online_detection_tpu_torch.utils.checkpoint": None,
+    "online_detection_tpu_torch.utils.telemetry": None,
+    "online_detection_tpu_torch.pipelines.online_pipeline": None,
+}
+
+
+@pytest.mark.parametrize("module", sorted(_STAGE_MODULES))
+def test_stage_module_imports_alone(module):
+    """Each module of the inference stage imports in a fresh interpreter
+    without JAX, and the config and dataset modules with PyYAML or PIL
+    blocked: they import those only in the functions that read a YAML file
+    or an image."""
+    blocked = _STAGE_MODULES[module]
+    code = (
+        "import sys, importlib\n"
+        f"if {blocked!r}:\n"
+        f"    sys.modules[{blocked!r}] = None  # any import of it raises\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', "
+        "'online_detection_tpu')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_no_port_source_imports_jax():
     sources = _port_sources()
     assert len(sources) > 15
@@ -139,3 +174,18 @@ def test_training_entry_points_without_device_raise_before_running(monkeypatch):
         dp.harvest_dataset_device(None, None, Untouchable(), OnlineTrainConfig(), (64, 64))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dp.train_online_modules_device(None, None, OnlineTrainConfig())
+
+
+def test_run_inference_without_device_raises_before_running(monkeypatch):
+    """With no ``device`` the inference stage targets the card; on a host with
+    no card it raises before reading any data."""
+    from online_detection_tpu_torch.pipelines.online_pipeline import run_inference
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Untouchable:
+        def __len__(self):
+            raise AssertionError("the dataset was read")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_inference(None, None, Untouchable(), (64, 64))

@@ -2,7 +2,8 @@
 (``harvest_dataset_device``), training (``train_online_modules_device``) and
 ``detect_batched`` with the trained models, on a tiny synthetic teaching set
 (4 images of 96x128, one ellipse each, 3 classes) and the narrow network of
-``test_torch_detector``.
+``test_torch_detector``; then the inference stage, ``run_inference`` with
+its VOC07 scoring, through both packages with the JAX-trained models.
 
 Both sides run without draws that matter: the harvest in the pinned
 ``parity_sampling`` mode (set on both packages' ``HarvestConfig``), and the
@@ -21,7 +22,14 @@ Both packages train with an ``output_dir``: their ``result.txt`` lines, and
 the port's ``timings`` keys, name the same stages in the same order. The
 port's stage clocks are recorded as events, to show that each clock that
 follows the feature statistics starts after them and after a device sync,
-where the JAX package starts it."""
+where the JAX package starts it.
+
+``run_inference`` runs over the 4 teaching images at batch 3 (the tail batch
+padded), masks on, with the detections and with the GT boxes substituted:
+equal per-image valid counts and labels, boxes within 1e-2 px, scores within
+2e-3, mask probabilities within 1e-2 (the tolerances above), det and segm
+mAP@0.5 within 1e-3, and the same ``result.txt`` lines once the time is
+masked."""
 
 import functools
 import re
@@ -140,7 +148,7 @@ def slice_runs(tmp_path_factory):
     finally:
         mp.undo()
     TRAINING.update(jax_lines=_result_lines(jdir), port_lines=_result_lines(pdir),
-                    timings=timings, events=events)
+                    timings=timings, events=events, jtree=jtree, params=params)
 
     images = np.stack([ds.load_image(i) for i in range(2)])
     sizes = np.array([[W, H]] * 2, np.float32)
@@ -249,3 +257,105 @@ def test_stage_clocks_start_after_feature_stats_and_a_sync(slice_runs):
     assert len(starts) == 3  # rpn_falkon, det_rls, segm_falkon
     for i in starts:
         assert events[i + 1:i + 3] == ["sync", "clock"], events
+
+
+# ---------------------------------------------------------------------------
+# the inference stage: run_inference and its VOC07 scoring
+
+
+class EvalTeachingSet(TinyTeachingSet):
+    """The teaching set as a test set: class names, and no difficult object."""
+
+    classes = ("__background__",) + tuple(f"object_{c}" for c in range(1, N_CLS + 1))
+
+    def get_annotation(self, i):
+        anno = super().get_annotation(i)
+        anno.difficult = np.zeros(len(anno.labels), bool)
+        return anno
+
+
+INFER = dict(dcfg=None, with_masks=True, min_size=H, max_size=400, gt_cap=4, batch_size=3)
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["detections", "gt_boxes"])
+def inference_runs(slice_runs, tmp_path_factory, request):
+    """(JAX results, predictions, result.txt lines), the same for the port:
+    ``run_inference`` of each package with the JAX-trained models."""
+    from online_detection_tpu.pipelines.online_pipeline import run_inference as j_run
+    from online_detection_tpu_torch.models.weights import online_from_jax
+    from online_detection_tpu_torch.pipelines.online_pipeline import run_inference
+
+    (_, _, jonline, _), _ = slice_runs
+    ds = EvalTeachingSet(N_IMG, H, W)
+    kw = dict(INFER, eval_segm_with_gt_bboxes=request.param)
+    jdir, pdir = (tmp_path_factory.mktemp(n) for n in ("jax_infer", "port_infer"))
+    jres, jpred = j_run(TRAINING["jtree"], jonline, ds, (H, W), output_dir=str(jdir),
+                        **dict(kw, dcfg=jdet.DetectorConfig(**DCFG)))
+    res, pred = run_inference(TRAINING["params"], online_from_jax(jonline), ds, (H, W),
+                              output_dir=str(pdir), device="cpu",
+                              **dict(kw, dcfg=detector.DetectorConfig(**DCFG)))
+    mask_time = lambda lines: [re.sub(r"\d+\.\d+ seconds", "T seconds", ln) for ln in lines]
+    return ((jres, jpred, mask_time(_result_lines(jdir))),
+            (res, pred, mask_time(_result_lines(pdir))))
+
+
+def test_run_inference_predictions_match(inference_runs):
+    (_, jpred, _), (_, pred, _) = inference_runs
+    assert len(pred) == len(jpred) == N_IMG
+    for k, (g, w) in enumerate(zip(pred, jpred)):
+        assert sorted(g) == sorted(w) == ["boxes", "labels", "masks", "scores"]
+        assert len(g["labels"]) == len(w["labels"]) > 0, k
+        np.testing.assert_array_equal(g["labels"], w["labels"], err_msg=str(k))
+        np.testing.assert_allclose(g["boxes"], w["boxes"], atol=1e-2, err_msg=str(k))
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=2e-3, err_msg=str(k))
+        np.testing.assert_allclose(g["masks"], w["masks"], atol=1e-2, err_msg=str(k))
+
+
+def test_run_inference_map_matches(inference_runs):
+    (jres, _, _), (res, _, _) = inference_runs
+    assert sorted(res) == sorted(jres) == ["det_ap_0.5", "det_map_0.5", "segm_ap_0.5",
+                                           "segm_map_0.5"]
+    for k in ("det_map_0.5", "segm_map_0.5"):
+        assert abs(res[k] - jres[k]) <= 1e-3, (k, res[k], jres[k])
+    for k in ("det_ap_0.5", "segm_ap_0.5"):
+        np.testing.assert_allclose(res[k], jres[k], atol=1e-3, err_msg=k)
+    assert max(res["det_map_0.5"], res["segm_map_0.5"]) > 0  # not 0 against 0
+
+
+def test_run_inference_result_lines_match(inference_runs):
+    (_, _, jlines), (_, _, lines) = inference_runs
+    assert lines == jlines
+    assert lines[0] == "Average image testing time: T seconds."
+    assert any(ln.startswith("Detection mAP50: ") for ln in lines)
+    assert any(ln.startswith("Segmentation mAP50: ") for ln in lines)
+
+
+def test_detect_with_gt_boxes_matches_jax(slice_runs):
+    """The single-image ``detect`` with GT arguments: the detections are the
+    GT (labels, score 1, padding zeroed) and the masks are computed on them."""
+    from online_detection_tpu_torch.models.weights import online_from_jax
+
+    (_, _, jonline, _), _ = slice_runs
+    ds = TinyTeachingSet(N_IMG, H, W)
+    image = ds.load_image(1)
+    size = np.array([W, H], np.float32)
+    anchors = grid_anchors(H // 16, W // 16)
+    gb = np.zeros((4, 4), np.float32)
+    gb[:2] = [ds.get_annotation(1).boxes[0], [8.0, 10.0, 60.0, 70.0]]
+    gl = np.array([2, 3, 0, 0], np.int32)
+    gv = np.array([True, True, False, False])
+    jd, jm, jp, jpv = jdet.detect(TRAINING["jtree"], jonline, jnp.asarray(anchors),
+                                  jnp.asarray(image), jnp.asarray(size),
+                                  jdet.DetectorConfig(**DCFG), True, jnp.asarray(gb),
+                                  jnp.asarray(gl), jnp.asarray(gv))
+    d, m, p, pv = detector.detect(TRAINING["params"], online_from_jax(jonline), anchors, image,
+                                  size, detector.DetectorConfig(**DCFG), True, gb, gl, gv,
+                                  device="cpu")
+    np.testing.assert_array_equal(d.valid.numpy(), gv)
+    np.testing.assert_array_equal(d.labels.numpy(), np.asarray(jd.labels))
+    np.testing.assert_array_equal(d.boxes.numpy(), np.asarray(jd.boxes))
+    np.testing.assert_array_equal(d.scores.numpy(), np.asarray(jd.scores))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jpv))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp), atol=1e-2)
+    assert m.shape == (4, 14, 14)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), atol=1e-2)
