@@ -44,7 +44,27 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    ``run_inference`` on 4 small held-out canvases on the card and on the
    CPU, with the detections and with the GT boxes substituted (same
    detections per image and labels, mAPs within 1e-3).
-6. Prints one ``{"kernels": [...]}`` line (launches counted over every
+6. The host route: ``harvest_dataset`` over the same 64 teaching images
+   one at a time (B = 1: B2 and B4 launch 64 times each), its chunks copied
+   to the host and folded by ``HarvestAccumulator``, then
+   ``train_online_modules`` (every head in one class chunk: one B1 launch a
+   minibootstrap iteration a head) and ``run_inference`` over the 32
+   held-out images with those models; prints harvest ms an image, MB copied
+   to the host an image, ``finalize`` seconds, the host's peak RSS, seconds
+   by stage, peak GiB on the card and the det / segm mAP@0.5 beside the
+   device route's (det mAP 0 fails); traces the harvest of 4 images.
+7. The feature caches: ``save_features`` of a host-route harvest of the
+   first 8 teaching images, then ``load_features`` with the shuffle flags
+   off (the pools must equal the saved rows) and on (each class's negatives
+   must be a permutation of them); the cache is deleted afterwards.
+8. The flagship CLI (``online_detection_tpu_torch.experiments.
+   run_experiment_online_rpn_ood_oos``) on an on-disk synthetic tree (8
+   train and 4 test JPEGs of 240x320, written and read with PIL): the
+   device route saving its models, the host route saving the feature
+   caches, and training from those caches; each must write the CLI's
+   ``result.txt`` lines, give finite mAPs and launch the kernels of its
+   path.
+9. Prints one ``{"kernels": [...]}`` line (launches counted over every
    path), the card's name and power limit, and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +74,10 @@ traced batches' device time by kernel and idle share to
 ``chiprun_out/detect_profile.txt``, ``chiprun_out/harvest_profile.txt`` and
 ``chiprun_out/inference_profile.txt``, and ``run_inference``'s ``result.txt``
 and log to ``chiprun_out/inference/``.
+Beside them, the host route's traced harvest goes to
+``host_harvest_profile.txt`` and each CLI run's ``result.txt`` to ``cli/``.
+Scratch files (the feature caches, the CLI's tree and outputs) live under
+``.bench/`` and are deleted.
 """
 
 from __future__ import annotations
@@ -1129,6 +1153,387 @@ def small_training_reference_check(params, dev, report):
         fail(f"card and CPU trained heads disagree: {err}")
 
 
+# ---------------------------------------------------------------------------
+# the host route: harvest_dataset -> HarvestAccumulator -> train_online_modules
+
+
+class FirstImages:
+    """The first ``n`` images of a dataset (the same images, no new draws)."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+        self.classes = ds.classes
+
+    def __len__(self):
+        return self.n
+
+    def __getattr__(self, name):  # load_image, get_annotation, load_masks
+        return getattr(self.ds, name)
+
+
+def peak_rss_gib() -> float:
+    """The host process's peak resident set so far (Linux: KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def host_mining_launches(cfg, seg_iters):
+    """B1 launches of the host route's train_online_modules: every head
+    trains all its classes in one chunk, one grouped launch an iteration;
+    the segmenter's iteration count is what ``finalize`` gave its pools."""
+    rpn = cfg.iterations if cfg.with_rpn else 0
+    return rpn + cfg.iterations + (seg_iters if cfg.with_segmentation else 0)
+
+
+def check_host_models(online):
+    """Finite models wherever a class exists; every head trained a class."""
+    summary = {}
+    for name in ("rpn", "detector", "mask"):
+        m = getattr(online, name)
+        f, ok = m.falkon, m.falkon.exists
+        for k, t in (("centers", f.centers[ok]), ("alpha", f.alpha[ok]), ("mean", m.stats.mean),
+                     ("mean_norm", m.stats.mean_norm)):
+            if not torch_isfinite(t):
+                fail(f"host route: {name} {k} is not finite where the class exists")
+        rls = getattr(m, "rls", None)
+        if rls is not None and not torch_isfinite(rls.beta[rls.exists]):
+            fail(f"host route: {name} RLS is not finite where the class exists")
+        summary[name] = int(ok.sum())
+        if summary[name] == 0:
+            fail(f"host route: no {name} class trained")
+    return summary
+
+
+def host_route_phase(params, seed, card, report, out_dir):
+    """``harvest_dataset`` over the TRAIN_IMAGES teaching images one at a time
+    (B = 1), ``train_online_modules`` with the flagship configuration, then
+    ``run_inference`` over the held-out images with those models; the launch
+    counts of each path are read right after it."""
+    import torch
+
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.ops import _build
+    from online_detection_tpu_torch.pipelines.online_pipeline import (
+        OnlineTrainConfig, harvest_dataset, run_inference, train_online_modules)
+
+    cfg, dcfg = OnlineTrainConfig(), DetectorConfig()
+    ds = teaching_set(TRAIN_IMAGES, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    paths = {}
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    harvest = harvest_dataset(gen, params, ds, cfg, CANVAS, dcfg=dcfg, gt_cap=20)
+    harvest_s = time.time() - t0
+    paths["host harvest"] = dict(_build.LAUNCHES)
+    want = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": TRAIN_IMAGES, "roi_align": 0,
+            "roi_align_fused2": TRAIN_IMAGES}
+    if paths["host harvest"] != want:
+        fail(f"host harvest launched {paths['host harvest']}, expected {want}")
+    mb_per_image = harvest["host_bytes"] / TRAIN_IMAGES / 1e6
+    rss_harvest = peak_rss_gib()
+    seg_iters = harvest["mask"]["neg"].shape[1]
+    finalize_s = harvest["finalize_time"]
+    print(f"harvest_dataset {TRAIN_IMAGES} images of {TRAIN_HW[1]}x{TRAIN_HW[0]} at B = 1: "
+          f"{harvest_s:.3f} s, {harvest_s / TRAIN_IMAGES * 1e3:.2f} ms/image, "
+          f"{mb_per_image:.2f} MB copied to the host an image, finalize "
+          f"{finalize_s:.3f} s, peak host RSS {rss_harvest:.2f} GiB on {card}; "
+          f"AR {harvest['average_recall']:.4f}, truncation {harvest['truncation']}; launches "
+          f"{paths['host harvest']}", flush=True)
+
+    _build.reset_launches()
+    stages = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    online = train_online_modules(gen, harvest, cfg, timings=stages)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    del harvest
+    paths["host train"] = dict(_build.LAUNCHES)
+    mining = host_mining_launches(cfg, seg_iters)
+    want = {"gaussian_mmv": mining, "tf32_split": mining, "stem_pool": 0, "roi_align": 0,
+            "roi_align_fused2": 0}
+    if paths["host train"] != want:
+        fail(f"host training launched {paths['host train']}, expected {want}")
+    trained = check_host_models(online)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    rss_train = peak_rss_gib()
+    print(f"train_online_modules: {train_s:.3f} s; seconds by stage "
+          f"{ {k: round(v, 3) for k, v in stages.items()} } on {card}; classes trained "
+          f"{trained}; peak {peak_gb:.2f} GiB on the card, peak host RSS {rss_train:.2f} GiB; "
+          f"launches {paths['host train']}", flush=True)
+
+    test_set = teaching_set(HELD_OUT_IMAGES, seed + 1)
+    n_batches = -(-HELD_OUT_IMAGES // BATCH_SIZE)
+    _build.reset_launches()
+    t0 = time.time()
+    results, _ = run_inference(params, online, test_set, CANVAS, dcfg, batch_size=BATCH_SIZE)
+    infer_s = time.time() - t0
+    paths["host run_inference"] = dict(_build.LAUNCHES)
+    want = {k: n_batches * v for k, v in EXPECTED_LAUNCHES.items()}
+    if paths["host run_inference"] != want:
+        fail(f"run_inference with the host route's models launched "
+             f"{paths['host run_inference']}, expected {want}")
+    check_scores(results, "host route run_inference")
+    dev_maps = {k: report["inference"][k] for k in ("det_map_0.5", "segm_map_0.5")}
+    print(f"run_inference with the host route's models on the {HELD_OUT_IMAGES} held-out "
+          f"images: det mAP@0.5 {results['det_map_0.5']:.4f}, segm mAP@0.5 "
+          f"{results['segm_map_0.5']:.4f} (device route's models in this run: det "
+          f"{dev_maps['det_map_0.5']:.4f}, segm {dev_maps['segm_map_0.5']:.4f}); "
+          f"{infer_s:.3f} s; launches {paths['host run_inference']} on {card}", flush=True)
+    # four images traced: the device's time an image beside the loop's
+    traced = 4
+    profiled = profile_batch(
+        lambda: harvest_dataset(gen, params, FirstImages(ds, traced), cfg, CANVAS, dcfg=dcfg,
+                                gt_cap=20),
+        out_dir / "host_harvest_profile.txt", card)
+    loop_ms = (harvest_s - finalize_s) / TRAIN_IMAGES * 1e3
+    print(f"host harvest: {loop_ms:.2f} ms an image in the per-image loop (finalize apart); "
+          f"traced over {traced} images: device {profiled['kernel_ms'] / traced:.2f} ms an "
+          f"image, {profiled['n_kernel_launches'] / traced:.0f} launches an image, copies "
+          f"{profiled['port_kernels_ms']['Memcpy'] / traced:.2f} ms an image; "
+          f"{json.dumps(profiled)}", flush=True)
+    report["host_route"] = {
+        "card": card, "images": TRAIN_IMAGES, "harvest_s": harvest_s,
+        "harvest_ms_per_image": harvest_s / TRAIN_IMAGES * 1e3,
+        "loop_ms_per_image": loop_ms, "harvest_profile": profiled,
+        "host_mb_per_image": mb_per_image, "finalize_s": finalize_s, "train_s": train_s,
+        "train_stage_s": stages, "peak_gib_card": peak_gb, "peak_rss_gib_harvest": rss_harvest,
+        "peak_rss_gib_train": rss_train, "classes_trained": trained, "seg_iterations": seg_iters,
+        "det_map_0.5": results["det_map_0.5"], "segm_map_0.5": results["segm_map_0.5"],
+        "device_route_maps": dev_maps, "run_inference_s": infer_s, "launches": paths}
+    return paths
+
+
+def _same_rows(got, want, what):
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        fail(f"feature cache: {what} differ after the round trip")
+
+
+def _row_multiset(rows):
+    """Rows as one sorted byte string each: equal for any permutation."""
+    import numpy as np
+
+    rows = np.ascontiguousarray(rows)
+    return np.sort(rows.view(np.dtype((np.void, rows.dtype.itemsize * rows.shape[1]))).ravel())
+
+
+def feature_cache_phase(params, seed, card, report):
+    """``save_features`` of a host-route harvest of the first 8 teaching
+    images, then ``load_features`` with the shuffle flags off (the pools
+    must equal the saved valid rows) and on (each class's negatives must be
+    a permutation of them); the cache directory is deleted afterwards."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.ops import _build
+    from online_detection_tpu_torch.pipelines.online_pipeline import (
+        OnlineTrainConfig, harvest_dataset)
+    from online_detection_tpu_torch.utils.checkpoint import load_features, save_features
+
+    cfg = OnlineTrainConfig()
+    n = BATCH_SIZE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _build.reset_launches()
+    harvest = harvest_dataset(gen, params, FirstImages(teaching_set(TRAIN_IMAGES, seed), n), cfg,
+                              CANVAS, dcfg=DetectorConfig(), gt_cap=20)
+    launches = dict(_build.LAUNCHES)
+    if launches["stem_pool"] != n or launches["roi_align_fused2"] != n:
+        fail(f"the cache phase's harvest launched {launches}")
+    scratch = ROOT / ".bench"
+    scratch.mkdir(exist_ok=True)
+    cache = Path(tempfile.mkdtemp(prefix="feature_cache_", dir=scratch))
+    try:
+        t0 = time.time()
+        save_features(str(cache), harvest)
+        save_s = time.time() - t0
+        mb = sum(p.stat().st_size for p in cache.rglob("*") if p.is_file()) / 1e6
+        t0 = time.time()
+        plain = load_features(str(cache))
+        load_s = time.time() - t0
+        t0 = time.time()
+        shuffled = load_features(str(cache), det_shuffle_negatives=True,
+                                 rpn_shuffle_negatives=True, iterations=cfg.iterations,
+                                 batch_size=cfg.batch_size, rng=np.random.default_rng(seed))
+        load_shuffled_s = time.time() - t0
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+    for head in ("rpn", "det", "mask"):
+        saved, got, mixed = harvest[head], plain[head], shuffled[head]
+        for c in range(saved["pos"].shape[0]):
+            want_pos = saved["pos"][c][saved["pos_valid"][c]]
+            _same_rows(got["pos"][c][got["pos_valid"][c]], want_pos, f"{head} positives {c}")
+            _same_rows(mixed["pos"][c][mixed["pos_valid"][c]], want_pos,
+                       f"{head} positives {c} (shuffle flags on)")
+            batches = [saved["neg"][c, b][saved["neg_valid"][c, b]]
+                       for b in range(saved["neg"].shape[1])]
+            if head == "mask":  # one pooled batch, subsampled at ratio 1.0: all rows
+                _same_rows(got["neg"][c, 0][got["neg_valid"][c, 0]],
+                           np.concatenate(batches), f"mask negatives {c}")
+                continue
+            for b, rows in enumerate(batches):
+                _same_rows(got["neg"][c, b][got["neg_valid"][c, b]], rows,
+                           f"{head} negatives {c}/{b}")
+            loaded = mixed["neg"][c][mixed["neg_valid"][c]]
+            _same_rows(_row_multiset(loaded), _row_multiset(np.concatenate(batches)),
+                       f"{head} negatives {c} as a set (shuffle flags on)")
+        if "coxy" in saved:
+            for k in ("X", "Y", "C"):
+                _same_rows(got["coxy"][k], saved["coxy"][k], f"{head} COXY {k}")
+    print(f"feature cache of {n} teaching images: {mb:.1f} MB of .npy, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s, load with the shuffle flags {load_shuffled_s:.3f} s on {card}; "
+          f"pools equal, shuffled negatives a permutation of them", flush=True)
+    report["feature_cache"] = {"card": card, "images": n, "mb": mb, "save_s": save_s,
+                               "load_s": load_s, "load_shuffled_s": load_shuffled_s,
+                               "launches": launches}
+    return {"cache harvest": launches}
+
+
+# the JAX CLI's smoke configuration (tests/test_experiment_cli.py) with the
+# flagship's solver widths: M 1000/1000/500, sigma 50/15/10
+CLI_FEAT_CFG = """
+MODEL:
+  WEIGHT: ""
+  RPN:
+    PRE_NMS_TOP_N_TEST: 150
+    POST_NMS_TOP_N_TEST: 40
+  MASK_ON: True
+DATASETS:
+  TRAIN: ("path:{root}::train",)
+  TEST: ("path:{root}::test",)
+INPUT:
+  MIN_SIZE_TEST: 128
+  MAX_SIZE_TEST: 320
+MINIBOOTSTRAP:
+  DETECTOR:
+    NUM_CLASSES: 19
+    ITERATIONS: 2
+    BATCH_SIZE: 64
+    SHUFFLE_NEGATIVES: True
+SEGMENTATION:
+  BATCH_SIZE: 256
+EVALUATION:
+  IOU_THRESHOLDS: (0.5,)
+  USE_VOC07_METRIC: True
+"""
+
+CLI_ONLINE_CFG = """
+NUM_CLASSES: 20
+ONLINE_REGION_CLASSIFIER:
+  MINIBOOTSTRAP:
+    EASY_THRESH: -0.9
+    HARD_THRESH: -0.7
+  CLASSIFIER: {lambda: 0.00001, sigma: 15, M: 1000, kernel_type: 'gauss'}
+REGION_REFINER:
+  opts: {lambda: 1000}
+ONLINE_SEGMENTATION:
+  MINIBOOTSTRAP: {EASY_THRESH: -0.9, HARD_THRESH: -0.7}
+  CLASSIFIER: {lambda: 0.000001, sigma: 10, M: 500, kernel_type: 'gauss'}
+EVALUATION: {SCORE_THRESH: -2, NMS: 0.3, DETECTIONS_PER_IMAGE: 10}
+RPN:
+  ONLINE_REGION_CLASSIFIER:
+    MINIBOOTSTRAP: {EASY_THRESH: -0.9, HARD_THRESH: -0.7}
+    CLASSIFIER: {lambda: 0.001, sigma: 50, M: 1000, kernel_type: 'gauss'}
+  REGION_REFINER:
+    opts: {lambda: 0.01}
+"""
+
+# result.txt of the flagship CLI, in its order: the harvest's lines, the
+# training stages', the totals', then run_inference's (a "truncated" line
+# follows the AR line when a fixed cap dropped rows)
+CLI_HARVEST_LINES = ["Detector's features extracted in", "Average Recall (AR)", ""]
+CLI_TRAIN_LINES = ["RPN's Online Classifier training time",
+                   "RPN's Online Region Refiner training time",
+                   "Detector's Online Region Refiner training time", "",
+                   "Detector's Online Classifier training time",
+                   "Online Segmentation training time", "", "Total training time",
+                   "Training time for the online modules", ""]
+CLI_INFERENCE_HEAD = ["Average image testing time", "Detection mAP50"]
+
+
+def result_keys(text):
+    """result.txt's lines as their text before the first colon (blank lines
+    stay blank), the optional "truncated" line left out."""
+    keys = [ln.split(":")[0].strip() for ln in text.splitlines()]
+    return [k for k in keys if k != "truncated"]
+
+
+def cli_phase(card, report, out_dir):
+    """The port's flagship CLI on an on-disk synthetic tree (PIL-written
+    JPEGs and masks): the device route saving its models, the host route
+    saving the feature caches, then training from those caches. Each run
+    must write the CLI's result.txt lines and give finite mAPs, and the
+    launch counters of the kernels its path runs must rise."""
+    import math
+
+    from online_detection_tpu_torch.data.datasets.synthetic import make_synthetic_icwt
+    from online_detection_tpu_torch.experiments import run_experiment_online_rpn_ood_oos as cli
+    from online_detection_tpu_torch.ops import _build
+
+    work = ROOT / ".bench" / "cli_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    keep = out_dir / "cli"
+    shutil.rmtree(keep, ignore_errors=True)
+    keep.mkdir()
+    all_kernels = set(COUNTERS)
+    runs = (("device route", "device", ["--save_RPN_detector_segmentation_models"],
+             all_kernels),
+            ("host route, save features", "host",
+             ["--save_RPN_detector_segmentation_features"], all_kernels),
+            ("host route, load features", "host",
+             ["--load_RPN_detector_segmentation_features"], all_kernels - {"roi_align_fused2"}))
+    paths, summary = {}, {}
+    try:
+        root = work / "ycbv_synth"
+        t0 = time.time()
+        make_synthetic_icwt(str(root), n_train=8, n_test=4, image_hw=(240, 320))
+        (work / "feat.yaml").write_text(CLI_FEAT_CFG.format(root=root))
+        (work / "online.yaml").write_text(CLI_ONLINE_CFG)
+        tree_s = time.time() - t0
+        for name, sub, flags, rising in runs:
+            out = work / sub
+            result = out / "result.txt"
+            before = result.read_text() if result.exists() else ""
+            _build.reset_launches()
+            t0 = time.time()
+            results = cli.main(["--output_dir", str(out),
+                                "--config_file_feature_extraction", str(work / "feat.yaml"),
+                                "--config_file_online_rpn_detection_segmentation",
+                                str(work / "online.yaml")] + flags)
+            run_s = time.time() - t0
+            paths[f"cli {name}"] = launches = dict(_build.LAUNCHES)
+            idle = sorted(k for k in rising if launches[k] == 0)
+            if idle or any(launches[k] for k in all_kernels - rising):
+                fail(f"CLI ({name}) launched {launches}: the kernels of its path must rise")
+            text = result.read_text()[len(before):]
+            (keep / f"{name.replace(' ', '_').replace(',', '')}.txt").write_text(text)
+            keys = result_keys(text)
+            head = (CLI_HARVEST_LINES if "load" not in name else []) + CLI_TRAIN_LINES
+            if keys[:len(head)] != head or keys[len(head):len(head) + 2] != CLI_INFERENCE_HEAD:
+                fail(f"CLI ({name}) result.txt lines {keys}, expected {head} then "
+                     f"{CLI_INFERENCE_HEAD}")
+            maps = {k: results[k] for k in ("det_map_0.5", "segm_map_0.5")}
+            if not all(math.isfinite(v) for v in maps.values()):
+                fail(f"CLI ({name}) mAPs {maps}")
+            summary[name] = {"seconds": run_s, "launches": launches, **maps}
+            print(f"  CLI ({name}): {run_s:.2f} s, det mAP@0.5 {maps['det_map_0.5']:.4f}, "
+                  f"segm mAP@0.5 {maps['segm_map_0.5']:.4f}, launches {launches} on {card}",
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    report["cli"] = {"card": card, "tree_s": tree_s, "runs": summary}
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1247,7 +1652,12 @@ def main(argv=None) -> int:
     del trained
     torch.cuda.empty_cache()
     small_training_reference_check(params, dev, report)
-    for path in list(train_paths.values()) + [infer_launches]:
+    print("host route:", flush=True)
+    host_paths = host_route_phase(params, args.seed, card, report, out_dir)
+    host_paths.update(feature_cache_phase(params, args.seed, card, report))
+    print("flagship CLI:", flush=True)
+    host_paths.update(cli_phase(card, report, out_dir))
+    for path in list(train_paths.values()) + [infer_launches] + list(host_paths.values()):
         for k, n in path.items():
             launches[k] += n
 
@@ -1286,6 +1696,8 @@ def main(argv=None) -> int:
          "small_inference_reference": report["small_inference_reference"],
          "small_reference": report["small_reference"],
          "small_training_reference": report["small_training_reference"],
+         "host_route": report["host_route"], "feature_cache": report["feature_cache"],
+         "cli": report["cli"],
          "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,
          "tensor_core_sass": sass,

@@ -205,6 +205,43 @@ def accumulate_batch(state: DeviceReservoirs, chunks: HarvestChunk, img_valid: t
     return state.replace(**upd)
 
 
+def accumulate(state: DeviceReservoirs, chunk: HarvestChunk, num_classes: int
+               ) -> DeviceReservoirs:
+    """Folds one image's chunk (no batch axis) into the reservoirs: one
+    append per pool, the same rows and counts as ``accumulate_batch`` of a
+    batch holding only this image."""
+    upd = {}
+    if chunk.rpn is not None and state.rpn_neg is not None:
+        r: RPNChunk = chunk.rpn
+        upd["rpn_neg"] = _append(state.rpn_neg, r.neg, r.neg_valid)
+        upd["rpn_pos"] = _append(state.rpn_pos, r.pos, r.pos_valid)
+        upd["rpn_coxy_y"] = _append(state.rpn_coxy_y, r.coxy_y, r.pos_valid)
+    d: DetChunk = chunk.det
+    upd["det_neg"] = _append(state.det_neg, d.neg, d.neg_valid)
+    pos_rows, pos_valid = _route_by_class(d.pos, d.pos_labels, d.pos_valid, num_classes)
+    upd["det_pos"] = _append(state.det_pos, pos_rows, pos_valid)
+    packed = torch.cat([d.coxy_x, d.coxy_y, d.coxy_c[:, None]], dim=1)[None]  # [1, L, d+5]
+    upd["det_coxy"] = _append(state.det_coxy, packed, d.coxy_valid[None])
+    if chunk.mask is not None and state.mask_pos is not None:
+        m: MaskChunk = chunk.mask
+        g, pix, md = m.pos.shape
+        labels = m.labels.repeat_interleave(pix)  # (gt, pixel) flattened, routed by class
+        for name, rows, valid in (("mask_pos", m.pos, m.pos_valid),
+                                  ("mask_neg", m.neg, m.neg_valid)):
+            routed, routed_valid = _route_by_class(rows.reshape(g * pix, md), labels,
+                                                   valid.reshape(-1), num_classes)
+            upd[name] = _append(getattr(state, name), routed, routed_valid)
+    upd["ar_sum"] = state.ar_sum + chunk.average_recall
+    upd["n_images"] = state.n_images + 1
+    hd = chunk.det.coxy_dropped.long()
+    if chunk.rpn is not None and state.rpn_neg is not None:
+        hd = hd + chunk.rpn.pos_dropped.sum()
+    if chunk.mask is not None and state.mask_pos is not None:
+        hd = hd + chunk.mask.dropped
+    upd["harvest_dropped"] = state.harvest_dropped + hd
+    return state.replace(**upd)
+
+
 # --------------------------------------------------------------------------
 # negative pools -> minibootstrap batches
 

@@ -289,6 +289,30 @@ def harvest_mask(deconv_feats: torch.Tensor, gt_masks_14: torch.Tensor,
     return MaskChunk(pick(pi), pv, pick(ni), nv, gt_labels, gt_valid, dropped)
 
 
+def project_mask_on_box(mask: torch.Tensor, box: torch.Tensor, out: int = 14) -> torch.Tensor:
+    """Crops masks [..., H, W] to their boxes [..., 4] and resamples them to
+    [..., out, out] (bilinear): output pixel (i, j) samples the mask at the
+    centre of cell (i, j) of the box's grid, through one separable sampling
+    matrix per axis. The device twin of ``data/mask_project.py``."""
+    h, w = mask.shape[-2:]
+    box = box.float()
+    x1, y1, x2, y2 = box.unbind(-1)
+    bw = (x2 - x1 + 1.0).clamp(min=1.0)
+    bh = (y2 - y1 + 1.0).clamp(min=1.0)
+    ks = torch.arange(out, dtype=torch.float32, device=mask.device)
+
+    def axis_weights(start, size, dim):  # [..., out, dim]
+        pos = (start[..., None] + (ks + 0.5) / out * size[..., None] - 0.5).clamp(0.0, dim - 1.0)
+        low = torch.floor(pos)
+        frac = (pos - low)[..., None]
+        grid = torch.arange(dim, dtype=torch.float32, device=mask.device)
+        return (grid == low[..., None]) * (1.0 - frac) + (grid == low[..., None] + 1.0) * frac
+
+    wy = axis_weights(y1, bh, h)
+    wx = axis_weights(x1, bw, w)
+    return torch.einsum("...ih,...hw,...jw->...ij", wy, mask.float(), wx)
+
+
 # --------------------------------------------------------------------------
 # Full per-batch pass
 
@@ -355,3 +379,32 @@ def harvest_chunks(t, prop_boxes, prop_valid, feats, deconv, anchors, visibility
     if gt_masks_14 is not None and deconv is not None:
         mask_chunk = harvest_mask(deconv, gt_masks_14, gt_labels, gt_valid, hcfg, generator)
     return HarvestChunk(rpn_chunk, det_chunk, mask_chunk, ar)
+
+
+def first_image(chunk: HarvestChunk) -> HarvestChunk:
+    """A canvas batch's chunk -> its first image's chunk (batch axis gone)."""
+    def take(part):
+        return None if part is None else type(part)(*(x[0] for x in part))
+
+    return HarvestChunk(take(chunk.rpn), take(chunk.det), take(chunk.mask),
+                        chunk.average_recall[0])
+
+
+def harvest_image(params, online_rpn: Optional[OnlineRPNModels], anchors: torch.Tensor,
+                  visibility: torch.Tensor, image: torch.Tensor, image_size: torch.Tensor,
+                  gt_boxes: torch.Tensor, gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                  gt_masks: Optional[torch.Tensor], hcfg: HarvestConfig,
+                  dcfg: DetectorConfig = DetectorConfig(), with_rpn: bool = True,
+                  generator=None) -> HarvestChunk:
+    """One image's harvesting pass: the batched trunk and chunks at B = 1.
+    image [H, W, 3] canvas, image_size (width, height), gt_* [G, ...],
+    gt_masks [G, H, W] at canvas resolution (projected on the device here)
+    or None. Returns the image's chunk with no batch axis."""
+    one = lambda t: t[None]
+    trunk = harvest_trunk(params, online_rpn, anchors, one(image), one(image_size),
+                          one(gt_boxes), one(gt_valid), dcfg,
+                          with_mask_features=gt_masks is not None)
+    gm14 = None if gt_masks is None else one(project_mask_on_box(gt_masks, gt_boxes, 14))
+    return first_image(harvest_chunks(*trunk, anchors, one(visibility), one(image_size),
+                                      one(gt_boxes), one(gt_labels), one(gt_valid), gm14, hcfg,
+                                      with_rpn, generator))

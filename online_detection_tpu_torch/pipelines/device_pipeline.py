@@ -35,11 +35,18 @@ from online_detection_tpu_torch.models.anchors import anchor_visibility, grid_an
 from online_detection_tpu_torch.models.detector import DetectorConfig, OnlineModelSet
 from online_detection_tpu_torch.models.heads import OnlineDetectorModels, OnlineMaskModels
 from online_detection_tpu_torch.models.rpn import OnlineRPNModels
-from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig, _write_result
+from online_detection_tpu_torch.pipelines.online_pipeline import (
+    OnlineTrainConfig,
+    _fmt,
+    _StageClock,
+    _write_result,
+)
 from online_detection_tpu_torch.solvers.falkon import FalkonModel
 from online_detection_tpu_torch.solvers.minibootstrap import MinibootstrapParams, train_chunk
 from online_detection_tpu_torch.solvers.rls import rls_fit_grouped
 from online_detection_tpu_torch.utils.device import ieee_fp32, resolve_device
+from online_detection_tpu_torch.utils.device import sync as _sync
+from online_detection_tpu_torch.utils.device import to_device as _to_device
 from online_detection_tpu_torch.utils.draws import uniform
 from online_detection_tpu_torch.utils.stats import zscore
 
@@ -116,20 +123,6 @@ def reservoir_spec(cfg: OnlineTrainConfig, hcfg: HarvestConfig, batch_size: int 
         with_rpn=cfg.with_rpn, with_mask=cfg.with_segmentation, batch_size=batch_size)
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array -> device tensor; through pinned memory without a host
-    wait on the card."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset,
                            cfg: OnlineTrainConfig, canvas_hw: Tuple[int, int],
                            online_rpn: Optional[OnlineRPNModels] = None,
@@ -199,8 +192,7 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
         dt = time.time() - t0
         _LOG.info("harvest done: %d images in %.1f s (%.1f img/s)", n_images, dt,
                   n_images / max(dt, 1e-9))
-        _write_result(output_dir, "Detector's features extracted in: {}min:{}s \n".format(
-            int(dt / 60), round(dt % 60)))
+        _write_result(output_dir, "Detector's features extracted in: {} \n".format(_fmt(dt)))
         meta = {"extraction_time": dt,
                 "average_recall": float(state.ar_sum / state.n_images.clamp(min=1))}
         _write_result(output_dir, "Average Recall (AR): {} \n \n".format(meta["average_recall"]))
@@ -236,23 +228,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         state = state.pop()  # take the only reference
     if state.det_neg.rows.device.type != dev.type:
         raise ValueError(f"reservoirs are on {state.det_neg.rows.device}; expected {dev}")
-    timings = {} if timings is None else timings
-
-    def start():
-        # Queued work (the feature statistics) ends before a stage's clock
-        # starts; each clock spans what the JAX package's spans.
-        _sync(dev)
-        return time.time()
-
-    def done(stage, t0):
-        _sync(dev)
-        timings[stage] = time.time() - t0
-        mem = torch.cuda.memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0
-        _LOG.info("%s: %.3f s, %.0f MB allocated", stage, timings[stage], mem)
-        return timings[stage]
-
-    def fmt(sec):
-        return "{}min:{}s".format(int(sec / 60), round(sec % 60))
+    clock = _StageClock(dev, timings)
 
     def mb(m, sigma, lam):
         return MinibootstrapParams(m=m, sigma=sigma, lam=lam, hard_thresh=cfg.hard_thresh,
@@ -266,7 +242,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             stats_rpn = dacc.device_feature_stats_pool(
                 state.rpn_pos, state.rpn_neg, pos_fraction=cfg.pos_fraction_feat_stats,
                 generator=generator)
-            t0 = start()
+            t0 = clock.start()
             models = _train_head_chunked(
                 state.rpn_neg, pos, pos_valid, mb(cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam),
                 stats_rpn, cfg.iterations, cfg.batch_size,
@@ -274,9 +250,9 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
                 cfg.solver_class_chunk, generator)
             state = state.replace(rpn_neg=None)
             _write_result(output_dir, "RPN's Online Classifier training time: {} \n".format(
-                fmt(done("rpn_falkon", t0))))
+                clock.done("rpn_falkon", t0)))
             # RPN COXY: the positives' aligned targets; class = anchor index
-            t0 = time.time()
+            t0 = clock.start()
             a_cls = pos.shape[0]
             cls1 = torch.arange(1, a_cls + 1, device=dev)[:, None].expand_as(pos_valid)
             rls = rls_fit_grouped(zscore(pos, stats_rpn).reshape(-1, pos.shape[-1]),
@@ -284,7 +260,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
                                   pos_valid.reshape(-1).float(), a_cls, cfg.rpn_reg_lam,
                                   device_solve=True)
             _write_result(output_dir, "RPN's Online Region Refiner training time: {} \n"
-                          .format(fmt(done("rpn_rls", t0))))
+                          .format(clock.done("rpn_rls", t0)))
             online_rpn = OnlineRPNModels(models, rls, stats_rpn)
             state = state.replace(rpn_pos=None, rpn_coxy_y=None)
             pos = pos_valid = None
@@ -316,14 +292,14 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         stats_det = dacc.device_feature_stats_pool(
             det_pos_pool, state.det_neg, pos_fraction=cfg.pos_fraction_feat_stats,
             generator=generator)
-        t0 = start()
+        t0 = clock.start()
         reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
             else coxy_x
         det_rls = rls_fit_grouped(reg_x, coxy_y, coxy_c, coxy_valid.float(), cfg.num_classes,
                                   cfg.det_reg_lam, device_solve=True)
         _write_result(output_dir, "Detector's Online Region Refiner training time: {} \n \n"
-                      .format(fmt(done("det_rls", t0))))
-        t0 = time.time()
+                      .format(clock.done("det_rls", t0)))
+        t0 = clock.start()
         det_falkon = _train_head_chunked(
             state.det_neg, pos, pos_valid, mb(cfg.det_m, cfg.det_sigma, cfg.det_lam), stats_det,
             cfg.iterations, cfg.batch_size,
@@ -332,7 +308,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         pos = pos_valid = det_pos_pool = packed = coxy_x = coxy_y = coxy_c = reg_x = None
         state = state.replace(det_neg=None, det_pos=None, det_coxy=None)
         _write_result(output_dir, "Detector's Online Classifier training time: {} \n".format(
-            fmt(done("det_falkon", t0))))
+            clock.done("det_falkon", t0)))
         online_det = OnlineDetectorModels(det_falkon, det_rls, stats_det)
 
         # ---- segmentation ----
@@ -342,13 +318,13 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             stats_seg = dacc.device_feature_stats_pool(
                 state.mask_pos, state.mask_neg, pos_fraction=cfg.pos_fraction_feat_stats,
                 generator=generator)
-            t0 = start()
+            t0 = clock.start()
             seg_falkon = _train_head_chunked(
                 state.mask_neg, state.mask_pos.rows, state.mask_pos.valid_mask(),
                 mb(cfg.segm_m, cfg.segm_sigma, cfg.segm_lam), stats_seg, seg_iters,
                 cfg.segm_batch_size, "arrival", cfg.solver_class_chunk, generator)
             state = state.replace(mask_pos=None, mask_neg=None)
             _write_result(output_dir, "Online Segmentation training time: {} \n".format(
-                fmt(done("segm_falkon", t0))))
+                clock.done("segm_falkon", t0)))
             online_mask = OnlineMaskModels(seg_falkon, stats_seg)
     return OnlineModelSet(rpn=online_rpn, detector=online_det, mask=online_mask)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,26 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+def to_device(a, dev: torch.device) -> torch.Tensor:
+    """Host array (or tensor) -> tensor on ``dev``; onto the card through
+    pinned memory, without a host wait."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def host_array(a) -> np.ndarray:
+    """Tensor (on any device) or array-like -> NumPy array on the host."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def sync(dev: torch.device) -> None:
+    """Waits for the card's queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager

@@ -43,8 +43,15 @@ def test_fresh_import_loads_no_jax():
     assert out[1] == "[]", out
 
 
-# modules of the inference stage, and what each must import without
+# modules of the inference stage, the host route and the flagship CLI, and
+# what each must import without
 _STAGE_MODULES = {
+    "online_detection_tpu_torch.engine.accumulate": None,
+    "online_detection_tpu_torch.engine.device_accumulate": None,
+    "online_detection_tpu_torch.engine.harvest": None,
+    "online_detection_tpu_torch.utils.stats": None,
+    "online_detection_tpu_torch.experiments._common": "yaml",
+    "online_detection_tpu_torch.experiments.run_experiment_online_rpn_ood_oos": "yaml",
     "online_detection_tpu_torch.config.config": "yaml",
     "online_detection_tpu_torch.data.datasets.icubworld": "PIL",
     "online_detection_tpu_torch.data.datasets.ycb_video": "PIL",
@@ -59,10 +66,10 @@ _STAGE_MODULES = {
 
 @pytest.mark.parametrize("module", sorted(_STAGE_MODULES))
 def test_stage_module_imports_alone(module):
-    """Each module of the inference stage imports in a fresh interpreter
-    without JAX, and the config and dataset modules with PyYAML or PIL
-    blocked: they import those only in the functions that read a YAML file
-    or an image."""
+    """Each module of the inference stage, the host route and the CLI imports
+    in a fresh interpreter without JAX, and the config, dataset and CLI
+    modules with PyYAML or PIL blocked: they import those only in the
+    functions that read a YAML file or an image."""
     blocked = _STAGE_MODULES[module]
     code = (
         "import sys, importlib\n"
@@ -189,3 +196,38 @@ def test_run_inference_without_device_raises_before_running(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_inference(None, None, Untouchable(), (64, 64))
+
+
+def test_host_route_entry_points_without_device_raise_before_running(monkeypatch):
+    """With no ``device`` the host route's harvest and training target the
+    card; on a host with no card they raise before reading any data."""
+    from online_detection_tpu_torch.pipelines import online_pipeline as pipe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Untouchable:
+        def __len__(self):
+            raise AssertionError("the dataset was read")
+
+        def __getitem__(self, key):
+            raise AssertionError("the harvest was read")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipe.harvest_dataset(None, None, Untouchable(), pipe.OnlineTrainConfig(), (64, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipe.train_online_modules(None, Untouchable(), pipe.OnlineTrainConfig())
+
+
+def test_cli_without_cpu_flag_raises_before_any_work(monkeypatch, tmp_path):
+    """The flagship CLI without ``--CPU`` targets the card; on a host with no
+    card it raises before it reads a config or makes its output directory."""
+    from online_detection_tpu_torch.experiments import _common
+    from online_detection_tpu_torch.experiments import run_experiment_online_rpn_ood_oos as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    touched = []
+    monkeypatch.setattr(_common, "resolve_config", lambda *a: touched.append(a))
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--output_dir", str(out)])
+    assert touched == [] and not out.exists()

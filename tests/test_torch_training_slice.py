@@ -52,6 +52,7 @@ from online_detection_tpu_torch.models import detector
 from online_detection_tpu_torch.models.anchors import grid_anchors
 from online_detection_tpu_torch.models.weights import params_from_jax
 from online_detection_tpu_torch.pipelines import device_pipeline as dpipe
+from online_detection_tpu_torch.pipelines import online_pipeline as opipe
 from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
 from online_detection_tpu_torch.solvers.falkon import falkon_predict_classes
 from online_detection_tpu_torch.solvers.rls import rls_predict
@@ -164,8 +165,9 @@ TRAINING = {}
 
 
 def _record_clock_events(mp, events):
-    """Log the port's feature statistics, device syncs and clock reads."""
-    stats, sync = dacc.device_feature_stats_pool, dpipe._sync
+    """Log the port's feature statistics, and the device syncs and clock
+    reads of its stage clocks (``online_pipeline._StageClock``)."""
+    stats, sync = dacc.device_feature_stats_pool, opipe.sync
 
     def logged(name, fn):
         def call(*args, **kwargs):
@@ -175,8 +177,8 @@ def _record_clock_events(mp, events):
 
     clock = type("Clock", (), {"time": staticmethod(logged("clock", time.time))})
     mp.setattr(dacc, "device_feature_stats_pool", logged("stats", stats))
-    mp.setattr(dpipe, "_sync", logged("sync", sync))
-    mp.setattr(dpipe, "time", clock)
+    mp.setattr(opipe, "sync", logged("sync", sync))
+    mp.setattr(opipe, "time", clock)
 
 
 def _result_lines(out_dir):
