@@ -64,7 +64,19 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    caches, and training from those caches; each must write the CLI's
    ``result.txt`` lines, give finite mAPs and launch the kernels of its
    path.
-9. Prints one ``{"kernels": [...]}`` line (launches counted over every
+9. Checkpoint files and the stock Mask R-CNN path: random full-width
+   weights with COCO's 81-class predictors are written as a Caffe2 ``.pkl``
+   and a ``.pth`` ("model" key, ``module.`` prefixes) by the port's
+   exporters and loaded onto the card (``activation_checksums`` of the
+   original and both reloads within rtol 1e-5: the stem kernel's fp32
+   route); ``detect_pretrained`` with masks on 8 canvases of 608x800 one at
+   a time (B2 +1 and B3 +2 an image), one image traced, the card against the
+   CPU on a small canvas; checkpoints A, B, A loaded in turn (A's detections
+   must come back); then the feature-task tester CLI over the ``.pkl`` and
+   the ``.pth`` on a PIL-written tree, ``weights_smoke --selftest`` and a
+   flagship CLI run with ``--weights``. B2's fp32 route and B3 at this
+   path's shapes are held against their plain versions and timed.
+10. Prints one ``{"kernels": [...]}`` line (launches counted over every
    path), the card's name and power limit, and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -75,9 +87,10 @@ traced batches' device time by kernel and idle share to
 ``chiprun_out/inference_profile.txt``, and ``run_inference``'s ``result.txt``
 and log to ``chiprun_out/inference/``.
 Beside them, the host route's traced harvest goes to
-``host_harvest_profile.txt`` and each CLI run's ``result.txt`` to ``cli/``.
-Scratch files (the feature caches, the CLI's tree and outputs) live under
-``.bench/`` and are deleted.
+``host_harvest_profile.txt``, each CLI run's ``result.txt`` to ``cli/`` and
+the traced ``detect_pretrained`` image to ``pretrained_profile.txt``.
+Scratch files (the feature caches, the CLI's tree and outputs, the
+checkpoint files) live under ``.bench/`` and are deleted.
 """
 
 from __future__ import annotations
@@ -1534,6 +1547,345 @@ def cli_phase(card, report, out_dir):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# checkpoint files and the stock Mask R-CNN path
+
+# COCO's classes and the background: the stock predictors of the Detectron
+# R-50-C4 checkpoints
+COCO_CLASSES = 81
+PRETRAINED_IMAGES = 8
+
+
+# the class logits' gain: at the random predictor's own scale no class
+# reaches detect_pretrained's 0.05 score threshold on these images (one in
+# 81); at 6x several classes do
+CLS_GAIN = 6.0
+
+
+def random_checkpoint(seed):
+    """Full-width R-50-C4 with COCO's predictors (cls [2048, 81], bbox
+    [2048, 324], mask logits [256, 81]), random from numpy seeds, on the CPU."""
+    from online_detection_tpu_torch.experiments.weights_smoke import random_params
+
+    params = random_params(seed, N_ANCHORS, COCO_CLASSES)
+    params.box_predictor.cls_w *= CLS_GAIN
+    return params
+
+
+def canvases_of(ds, n):
+    """The first n teaching images (600x800) as 608x800 uint8 canvases."""
+    import numpy as np
+
+    out = np.zeros((n,) + CANVAS + (3,), np.uint8)
+    for i in range(n):
+        img = ds.load_image(i)
+        out[i, :img.shape[0], :img.shape[1]] = img
+    return out
+
+
+def detections_of(params, anchors, canvases, dev, with_masks=True):
+    """``detect_pretrained`` on each canvas: (detections, masks) per image."""
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_pretrained
+
+    h, w = TRAIN_HW
+    return [detect_pretrained(params, anchors, c, (w, h), DetectorConfig(),
+                              with_masks=with_masks, device=dev)[:2] for c in canvases]
+
+
+def check_pretrained_detections(dets, masks, cfg):
+    d, p = cfg.detections_per_img, cfg.pooler_resolution
+    for k, got, want in (("boxes", dets.boxes.shape, (d, 4)), ("scores", dets.scores.shape, (d,)),
+                         ("labels", dets.labels.shape, (d,)), ("masks", masks.shape, (d, p, p))):
+        if tuple(got) != want:
+            fail(f"detect_pretrained: {k} shape {tuple(got)}, expected {want}")
+    for k, t in (("boxes", dets.boxes), ("scores", dets.scores), ("masks", masks)):
+        if not torch_isfinite(t):
+            fail(f"detect_pretrained: non-finite {k}")
+    v = dets.valid
+    if not bool(v.any()):
+        fail("detect_pretrained: no valid detections")
+    lab = dets.labels[v]
+    if bool(((lab < 1) | (lab >= COCO_CLASSES)).any()):
+        fail("detect_pretrained: labels out of range")
+    if bool((dets.scores[v] <= 0.05).any()) or bool((dets.boxes[~v] != 0).any()):
+        fail("detect_pretrained: a kept score under the threshold or a non-zero padding row")
+    if bool(((masks < 0) | (masks > 1)).any()):
+        fail("detect_pretrained: mask probabilities out of [0, 1]")
+    return int(v.sum())
+
+
+def check_pretrained_kernels(params, canvas, dets_boxes, report):
+    """B2's fp32 route at the checksum shape and B3 at the stock path's
+    shapes (bf16 proposals and detections on a 38 x 50 map; fp32 checksum
+    boxes on an 8 x 10 map), held against their plain versions and timed."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.data.transforms import normalize_canvas
+    from online_detection_tpu_torch.models import resnet
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import rpn_scores_deltas
+    from online_detection_tpu_torch.models.rpn import propose, rpn_features
+    from online_detection_tpu_torch.ops.roi_align import roi_align_batched, roi_align_reference
+    from online_detection_tpu_torch.ops.stem_pool import stem_fused, stem_reference
+
+    st = params.backbone.stem
+    args = (st.weight, st.scale, st.bias)
+    h, w = 128, 160  # activation_checksums' image
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-120, 120, (1, h, w, 3))
+                         .astype(np.float32)).cuda()
+    got, ref = stem_fused(x, *args), stem_reference(x, *args)
+    check_close("stem_pool", got, ref, 1e-5 * ref.abs().max(), report)
+    ms, plain = timed(lambda: stem_fused(x, *args), 20), timed(lambda: stem_reference(x, *args), 5)
+    h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    flops = 2.0 * h2 * w2 * 64 * 147
+    nbytes = 4.0 * (x.numel() + got.numel() + st.weight.numel() + 128)
+    bound, by = bound_of(flops, nbytes)  # the fp32 route runs on the CUDA cores
+    report["stem_pool"]["f32_route"] = {
+        "shape": list(x.shape), "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "max_abs_err": float((got - ref).abs().max()), "tolerance": "1e-5 max|ref|"}
+    print(f"  stem_pool fp32 route at the checksum shape {list(x.shape)}: {ms:.4f} ms (plain "
+          f"{plain:.3f} ms; bound {bound:.5f} ms, {by}: {bound / ms:.1%} of it)", flush=True)
+
+    img = normalize_canvas(torch.from_numpy(canvas[None]).cuda())
+    c4 = resnet.backbone_c4(params.backbone, img.to(torch.bfloat16))
+    t = rpn_features(params.rpn, c4)
+    s, d = rpn_scores_deltas(params.rpn, None, t)
+    anchors = torch.from_numpy(grid_anchors(CANVAS[0] // 16, CANVAS[1] // 16)).cuda()
+    size = torch.tensor([[TRAIN_HW[1], TRAIN_HW[0]]], dtype=torch.float32, device="cuda")
+    props = propose(s, d, anchors, size)[0]
+    c4_small = resnet.backbone_c4(params.backbone, x)
+    small_boxes = torch.tensor([[[0.0, 0.0, w / 2, h / 2], [w / 4, h / 4, w - 1.0, h - 1.0]]],
+                               device="cuda")
+    calls = []
+    for role, f, rois, bf16 in (("pretrained proposals", c4, props, True),
+                                ("pretrained detections", c4, dets_boxes[None].contiguous(), True),
+                                ("checksum boxes", c4_small, small_boxes, False)):
+        got, ref = roi_align_batched(f, rois), roi_align_reference(f, rois)
+        tol = 1e-5 * ref.float().abs().max()
+        if bf16:
+            tol = bf16_ulp(ref.float()) + tol
+        check_close("roi_align", got, ref, tol, report)
+        ms = timed(lambda: roi_align_batched(f, rois), 10)
+        plain = timed(lambda: roi_align_reference(f, rois), 3)
+        _, fh, fw, c = f.shape
+        nbytes = f.element_size() * (f.numel() + got.numel()) + 4.0 * rois.numel()
+        bound, by = bound_of(roi_ops(rois, fh, fw, c), nbytes)
+        calls.append({"role": role, "shape": list(got.shape), "dtype": str(f.dtype), "ms": ms,
+                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                      "max_abs_err": float((got.float() - ref.float()).abs().max())})
+        print(f"  roi_align[{role}] {list(got.shape)} {str(f.dtype).split('.')[-1]}: {ms:.4f} ms "
+              f"(plain {plain:.3f} ms; bound {bound:.4f} ms, {by}: {bound / ms:.0%} of it)",
+              flush=True)
+    report["roi_align"]["pretrained_calls"] = calls
+
+
+def small_pretrained_reference_check(params, dev, report):
+    """``detect_pretrained`` on the card (kernels, fp32 trunk) against the
+    CPU (plain versions) on a small canvas, full-width network with COCO's
+    predictors: the same number of detections and proposals, sorted scores
+    within 1e-3 (near-equal scores may swap places), mean mask within 1e-3."""
+    import numpy as np
+
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_pretrained
+
+    rng = np.random.default_rng(321)
+    h, w = 128, 192
+    image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    anchors = grid_anchors(h // 16, w // 16)
+    cfg = DetectorConfig(pre_nms_top_n=200, post_nms_top_n=50, detections_per_img=20,
+                         compute_dtype="float32")
+
+    def run(device, p):
+        dets, masks, _, pvalid = detect_pretrained(p, anchors, image, (w - 24, h - 16), cfg,
+                                                   with_masks=True, device=device)
+        return dets.scores.cpu(), dets.valid.cpu(), masks.cpu(), pvalid.cpu()
+
+    sg, vg, mg, pg = run(dev, params)
+    sc, vc, mc, pc = run("cpu", copy.deepcopy(params).to("cpu"))
+    err = {"n_valid": [int(vg.sum()), int(vc.sum())],
+           "n_proposals": [int(pg.sum()), int(pc.sum())],
+           "sorted_scores_max_err": float((sg.sort(-1).values - sc.sort(-1).values).abs().max()),
+           "mask_mean_err": float((mg.mean() - mc.mean()).abs())}
+    report["pretrained"]["small_reference"] = err
+    print(f"  detect_pretrained, card vs CPU plain path on {h}x{w}: {err}", flush=True)
+    if err["n_valid"][0] != err["n_valid"][1] or err["n_proposals"][0] != err["n_proposals"][1]:
+        fail(f"detect_pretrained: card and CPU disagree on counts: {err}")
+    if err["sorted_scores_max_err"] > 1e-3 or err["mask_mean_err"] > 1e-3:
+        fail(f"detect_pretrained: card and CPU disagree: {err}")
+
+
+def pretrained_phase(seed, card, report, out_dir):
+    """Checkpoint files and the stock path: random full-width weights with
+    COCO's predictors written as a Caffe2 .pkl and a .pth ("model" key,
+    ``module.`` prefixes) by the port's exporters, loaded onto the card
+    (checksums of the original and both reloads within rtol 1e-5),
+    ``detect_pretrained`` with masks on PRETRAINED_IMAGES canvases one at a
+    time (B2 +1 and B3 +2 an image), one traced image, the card against the
+    CPU on a small canvas, checkpoints A, B, A loaded in turn (A's
+    detections must come back), then the tester CLI over both files,
+    ``weights_smoke --selftest`` and a flagship CLI run with ``--weights``."""
+    import math
+
+    import torch
+
+    from online_detection_tpu_torch.data.datasets.synthetic import make_synthetic_icwt
+    from online_detection_tpu_torch.experiments import run_experiment_online_rpn_ood_oos as cli
+    from online_detection_tpu_torch.experiments import run_experiment_test_feature_task as tester
+    from online_detection_tpu_torch.experiments import weights_smoke
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_pretrained
+    from online_detection_tpu_torch.models.weights import activation_checksums, load_checkpoint
+    from online_detection_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    work = ROOT / ".bench" / "pretrained"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "models").mkdir(parents=True)
+    rec = report.setdefault("pretrained", {"card": card})
+    paths = {}
+    try:
+        t0 = time.time()
+        params_a = random_checkpoint(seed + 5)
+        pkl, pth = weights_smoke.write_checkpoints(params_a, str(work / "models"), "model_a")
+        pkl_b, _ = weights_smoke.write_checkpoints(random_checkpoint(seed + 6), str(work), "b")
+        write_s = time.time() - t0
+        file_mb = {Path(f).name: Path(f).stat().st_size / 1e6 for f in (pkl, pth)}
+
+        _build.reset_launches()
+        sums = {"original": activation_checksums(params_a.to(dev))}
+        load_s = {}
+        for name, path in (("caffe2_pkl", pkl), ("torch_pth", pth)):
+            t0 = time.time()
+            loaded = load_checkpoint(path).to(dev)
+            torch.cuda.synchronize()
+            load_s[name] = time.time() - t0
+            sums[name] = activation_checksums(loaded)
+            weights_smoke.compare_checksums(sums["original"], sums[name], name)
+        del loaded
+        paths["checksums"] = launches = dict(_build.LAUNCHES)
+        if launches["stem_pool"] != 3 or launches["roi_align"] != 3:
+            fail(f"three checksum passes launched {launches}: B2 and B3 must rise by 3 each")
+        print(f"checkpoint files: wrote {file_mb} MB in {write_s:.2f} s; loaded onto the card in "
+              f"{ {k: round(v, 3) for k, v in load_s.items()} } s; checksums of the original "
+              f"and both reloads agree (rtol 1e-5) on {card}:", flush=True)
+        for stage, r in sums["original"].items():
+            print(f"  {stage}: {json.dumps(r)}", flush=True)
+
+        ds = teaching_set(PRETRAINED_IMAGES, seed + 3)
+        canvases = canvases_of(ds, PRETRAINED_IMAGES)
+        anchors = torch.from_numpy(grid_anchors(CANVAS[0] // 16, CANVAS[1] // 16)).to(dev)
+        cfg = DetectorConfig()
+        h, w = TRAIN_HW
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        times, n_valid = [], []
+        for c in canvases:
+            t0 = time.time()
+            dets, masks, _, _ = detect_pretrained(params_a, anchors, c, (w, h), cfg,
+                                                  with_masks=True, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+            n_valid.append(check_pretrained_detections(dets, masks, cfg))
+        paths["detect_pretrained"] = launches = dict(_build.LAUNCHES)
+        want = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": PRETRAINED_IMAGES,
+                "roi_align": 2 * PRETRAINED_IMAGES, "roi_align_fused2": 0}
+        if launches != want:
+            fail(f"detect_pretrained launched {launches}, expected {want}")
+        steady = times[1:]
+        print(f"detect_pretrained with masks, {PRETRAINED_IMAGES} canvases of {CANVAS[1]}x"
+              f"{CANVAS[0]} one at a time: ms an image {[round(t, 2) for t in times]} (steady "
+              f"mean {sum(steady) / len(steady):.2f}); valid detections {n_valid}; launches "
+              f"{launches} on {card}", flush=True)
+        profiled = profile_batch(
+            lambda: detect_pretrained(params_a, anchors, canvases[0], (w, h), cfg,
+                                      with_masks=True, device=dev),
+            out_dir / "pretrained_profile.txt", card)
+        print(f"profile of one detect_pretrained image: {json.dumps(profiled)}", flush=True)
+        check_pretrained_kernels(params_a, canvases[0], dets.boxes, report)
+        rec.update(write_s=write_s, file_mb=file_mb, load_s=load_s, checksums=sums["original"],
+                   ms_per_image=times, valid_detections=n_valid, profile=profiled)
+        small_pretrained_reference_check(params_a, dev, report)
+        del params_a
+        torch.cuda.empty_cache()
+
+        # A, B, A: a checkpoint loaded after another gives its own results
+        runs = []
+        for path in (pkl, pkl_b, pkl):
+            p = load_checkpoint(path).to(dev)
+            runs.append(detections_of(p, anchors, canvases[:2], dev))
+            del p
+        same = all(torch.equal(a.labels, b.labels) and torch.equal(a.valid, b.valid)
+                   and float((a.scores - b.scores).abs().max()) <= 1e-6
+                   and float((a.boxes - b.boxes).abs().max()) <= 1e-4
+                   and float((ma - mb).abs().max()) <= 1e-6
+                   for (a, ma), (b, mb) in zip(runs[0], runs[2]))
+        bitwise = all(torch.equal(a.scores, b.scores) and torch.equal(a.boxes, b.boxes)
+                      for (a, _), (b, _) in zip(runs[0], runs[2]))
+        differs = any(not torch.equal(a.scores, b.scores) for (a, _), (b, _) in
+                      zip(runs[0], runs[1]))
+        rec["reload_a_b_a"] = {"a_again_equal": same, "a_again_bitwise": bitwise,
+                               "b_differs": differs}
+        print(f"  checkpoints A, B, A in one process: A's detections again {same} (bit for "
+              f"bit {bitwise}), B's differ {differs}", flush=True)
+        if not same or not differs:
+            fail(f"A-B-A reload: A again equal {same}, B differs {differs}")
+
+        root = work / "ycbv_synth"
+        make_synthetic_icwt(str(root), n_train=8, n_test=4, image_hw=(240, 320))
+        (work / "feat.yaml").write_text(CLI_FEAT_CFG.format(root=root))
+        (work / "online.yaml").write_text(CLI_ONLINE_CFG)
+        _build.reset_launches()
+        t0 = time.time()
+        results = tester.main(["--output_dir", str(work / "tester"), "--models_dir",
+                               str(work / "models"), "--config_file", str(work / "feat.yaml")])
+        tester_s = time.time() - t0
+        paths["tester"] = launches = dict(_build.LAUNCHES)
+        names = sorted(Path(k).name for k in results)
+        maps = {Path(k).name: {m: r[m] for m in ("det_map_0.5", "segm_map_0.5")}
+                for k, r in results.items()}
+        if names != ["model_a.pkl", "model_a.pth"] or not all(
+                math.isfinite(v) for r in maps.values() for v in r.values()):
+            fail(f"tester CLI: {maps}")
+        if launches["stem_pool"] != 8 or launches["roi_align"] != 16:
+            fail(f"tester CLI over 2 checkpoints x 4 images launched {launches}")
+        print(f"tester CLI over {names} x 4 test images: {tester_s:.2f} s; mAPs {maps}; "
+              f"launches {launches} on {card}", flush=True)
+
+        _build.reset_launches()
+        t0 = time.time()
+        weights_smoke.main(["--selftest"])
+        selftest_s = time.time() - t0
+        paths["weights_smoke selftest"] = dict(_build.LAUNCHES)
+        print(f"weights_smoke --selftest on the card: {selftest_s:.2f} s", flush=True)
+
+        _build.reset_launches()
+        t0 = time.time()
+        out = work / "flagship"
+        flag = cli.main(["--output_dir", str(out), "--config_file_feature_extraction",
+                         str(work / "feat.yaml"), "--config_file_online_rpn_detection_segmentation",
+                         str(work / "online.yaml"), "--weights", pkl])
+        flag_s = time.time() - t0
+        paths["cli --weights"] = launches = dict(_build.LAUNCHES)
+        keys = result_keys((out / "result.txt").read_text())
+        head = CLI_HARVEST_LINES + CLI_TRAIN_LINES
+        if keys[:len(head)] != head or keys[len(head):len(head) + 2] != CLI_INFERENCE_HEAD:
+            fail(f"CLI with --weights: result.txt lines {keys}")
+        flag_maps = {k: flag[k] for k in ("det_map_0.5", "segm_map_0.5")}
+        if not all(math.isfinite(v) for v in flag_maps.values()) or any(
+                launches[k] == 0 for k in COUNTERS):
+            fail(f"CLI with --weights: mAPs {flag_maps}, launches {launches}")
+        print(f"flagship CLI (device route) with --weights {Path(pkl).name}: {flag_s:.2f} s, "
+              f"mAPs {flag_maps}, launches {launches} on {card}", flush=True)
+        rec.update(tester_s=tester_s, tester_maps=maps, selftest_s=selftest_s,
+                   cli_weights_s=flag_s, cli_weights_maps=flag_maps)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["launches"] = paths
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1657,6 +2009,8 @@ def main(argv=None) -> int:
     host_paths.update(feature_cache_phase(params, args.seed, card, report))
     print("flagship CLI:", flush=True)
     host_paths.update(cli_phase(card, report, out_dir))
+    print("checkpoint files and the stock path:", flush=True)
+    host_paths.update(pretrained_phase(args.seed, card, report, out_dir))
     for path in list(train_paths.values()) + [infer_launches] + list(host_paths.values()):
         for k, n in path.items():
             launches[k] += n
@@ -1679,6 +2033,9 @@ def main(argv=None) -> int:
         "roi_align": "online_detection_tpu/ops/roi_align.py:175",
         "roi_align_fused2": "online_detection_tpu/ops/roi_align.py:311",
     }
+    # the stock path's calls: B2's fp32 route and B3 at its shapes
+    extra = {"stem_pool": {"f32_route": report["stem_pool"]["f32_route"]},
+             "roi_align": {"pretrained_calls": report["roi_align"]["pretrained_calls"]}}
     sources = {k: k for k in KERNELS}
     sources["tf32_split"] = "gaussian_mmv"
     line = {"kernels": [
@@ -1687,7 +2044,7 @@ def main(argv=None) -> int:
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": report[k]["max_abs_err"], "ms": report[k]["ms"],
          "plain_ms": report[k]["plain_ms"], "bound_ms": report[k]["bound_ms"],
-         "bound_by": report[k]["bound_by"], "library_ms": None}
+         "bound_by": report[k]["bound_by"], "library_ms": None, **extra.get(k, {})}
         for k in COUNTERS],
         "not_ported": []}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1697,7 +2054,7 @@ def main(argv=None) -> int:
          "small_reference": report["small_reference"],
          "small_training_reference": report["small_training_reference"],
          "host_route": report["host_route"], "feature_cache": report["feature_cache"],
-         "cli": report["cli"],
+         "cli": report["cli"], "pretrained": report["pretrained"],
          "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,
          "tensor_core_sass": sass,

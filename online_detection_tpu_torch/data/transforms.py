@@ -1,8 +1,9 @@
 """Image preprocessing with the reference's Caffe2 conventions.
 
-The size arithmetic and ``preprocess_image_u8`` are a copy of the JAX
-package's ``data/transforms.py`` (NumPy, host side); ``normalize_canvas`` is
-its torch counterpart and runs on the tensor's device.
+The size arithmetic, ``preprocess_image`` and ``preprocess_image_u8`` are a
+copy of the JAX package's ``data/transforms.py`` (NumPy, host side);
+``normalize_canvas`` is its torch counterpart and runs on the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -48,6 +49,29 @@ def canvas_size(w: int, h: int, min_size: int = 600, max_size: int = 1333,
     return pad(sh), pad(sw)
 
 
+def _resized(rgb: np.ndarray, sw: int, sh: int) -> np.ndarray:
+    """PIL's bilinear resize to (sw, sh); PIL is imported only here."""
+    import PIL.Image as PILImage
+
+    return np.asarray(PILImage.fromarray(rgb).resize((sw, sh), PILImage.BILINEAR))
+
+
+def preprocess_image(rgb: np.ndarray, canvas_hw: Tuple[int, int], min_size: int = 600,
+                     max_size: int = 1333):
+    """uint8 RGB [H, W, 3] -> (float32 canvas [ch, cw, 3] BGR minus the pixel
+    means, scale, (scaled_w, scaled_h)), all on the host."""
+    h, w = rgb.shape[:2]
+    s = resize_scale(w, h, min_size, max_size)
+    sw, sh = scaled_size(w, h, min_size, max_size)
+    if (sw, sh) != (w, h):
+        rgb = _resized(rgb, sw, sh)
+    bgr = rgb[..., ::-1].astype(np.float32) - PIXEL_MEAN_BGR
+    ch, cw = canvas_hw
+    canvas = np.zeros((ch, cw, 3), np.float32)
+    canvas[:sh, :sw] = bgr[:ch, :cw]
+    return canvas, s, (sw, sh)
+
+
 def preprocess_image_u8(rgb: np.ndarray, canvas_hw: Tuple[int, int], min_size: int = 600,
                         max_size: int = 1333):
     """uint8 RGB [H, W, 3] -> (uint8 canvas [ch, cw, 3], scale, (scaled_w,
@@ -58,9 +82,7 @@ def preprocess_image_u8(rgb: np.ndarray, canvas_hw: Tuple[int, int], min_size: i
     s = resize_scale(w, h, min_size, max_size)
     sw, sh = scaled_size(w, h, min_size, max_size)
     if (sw, sh) != (w, h):
-        import PIL.Image as PILImage
-
-        rgb = np.asarray(PILImage.fromarray(rgb).resize((sw, sh), PILImage.BILINEAR))
+        rgb = _resized(rgb, sw, sh)
     ch, cw = canvas_hw
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[: min(sh, ch), : min(sw, cw)] = rgb[:ch, :cw]

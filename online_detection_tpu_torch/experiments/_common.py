@@ -33,6 +33,20 @@ def resolve_config(path):
         f"as a path); pass '' to run on built-in defaults")
 
 
+def load_configs(feat_path, online_path, minibootstrap_iterations=None):
+    """(train config, detector config, extras) from the two YAML files."""
+    from online_detection_tpu_torch.config.config import build_configs, load_yaml
+
+    feat_cfg, online_cfg = {}, {}
+    p = resolve_config(feat_path)
+    if p:
+        feat_cfg = load_yaml(p)
+    p = resolve_config(online_path)
+    if p:
+        online_cfg = load_yaml(p)
+    return build_configs(feat_cfg, online_cfg, minibootstrap_iterations)
+
+
 def make_dataset(name, data_root="Data/datasets"):
     from online_detection_tpu_torch.config.config import resolve_dataset
     from online_detection_tpu_torch.data.datasets.icubworld import ICubWorldDataset
@@ -70,20 +84,19 @@ def resolve_weight(weight_ref):
 
 
 def load_params(weights_arg, extras, num_classes):
-    """The feature extractor: random weights from seed 0 (on the CPU) when
-    no weights file is named. Reading a weights file is not ported yet
-    (ROADMAP.md, section A, item 5), so a ``--weights`` argument, or a
-    MODEL.WEIGHT that resolves to a file, raises: the run would otherwise
-    train on random weights without saying so."""
+    """The feature extractor, on the CPU: an existing ``--weights`` file, else
+    the file that MODEL.WEIGHT resolves to, through ``load_checkpoint``
+    (``.pkl`` or ``.pth``); else random weights from seed 0, with a warning."""
     from online_detection_tpu_torch.models.detector import init_detector_params
+    from online_detection_tpu_torch.models.weights import load_checkpoint
 
-    local = weights_arg or resolve_weight(extras.get("weight") or "")
+    if weights_arg and os.path.exists(weights_arg):
+        return load_checkpoint(weights_arg)
+    local = resolve_weight(extras.get("weight") or "")
     if local:
-        raise NotImplementedError(
-            f"weights file {local!r}: loading Detectron .pkl / maskrcnn-benchmark .pth "
-            "weights is not ported yet (ROADMAP.md, section A, item 5)")
+        return load_checkpoint(local)
     print("WARNING: no pretrained weights found — using random init "
-          "(weights files wait for ROADMAP.md, section A, item 5)")
+          "(pass --weights for real runs)")
     return init_detector_params(0, 15, num_classes + 1)
 
 

@@ -18,11 +18,11 @@ Two training routes, as in the JAX CLI:
   those flags and with ``--CPU``.
 
 Without ``--CPU`` the run needs a CUDA card and raises before any work when
-there is none. Config names resolve against ``experiments/configs``. Not
-ported yet: ``--weights`` (and a MODEL.WEIGHT that resolves to a file)
-raises, since weights files wait for ROADMAP.md §A item 5, so the network is
-random from seed 0, with a warning; ``--n_devices`` above 1 raises (item
-10).
+there is none. Config names resolve against ``experiments/configs``. The
+feature extractor comes from ``--weights``, or from the file MODEL.WEIGHT
+resolves to (a Detectron ``.pkl`` or a maskrcnn-benchmark ``.pth``); with
+neither, it is random from seed 0, with a warning. Not ported yet:
+``--n_devices`` above 1 raises (ROADMAP.md §A item 10).
 """
 
 from __future__ import annotations
@@ -63,8 +63,8 @@ def parse_args(argv=None):
     parser.add_argument("--data_root", type=str, default="Data/datasets",
                         help="Root of the dataset tree (reference layout)")
     parser.add_argument("--weights", type=str, default=None,
-                        help="A .pkl/.pth checkpoint of the feature extractor; reading one "
-                        "is not ported yet and raises")
+                        help="A .pkl (Caffe2 Detectron) or .pth (maskrcnn-benchmark) "
+                        "checkpoint of the feature extractor")
     parser.add_argument("--eval_segm_with_gt_bboxes", action="store_true")
     return parser.parse_args(argv)
 
@@ -79,27 +79,14 @@ def main(argv=None):
             "--n_devices > 1: training over a device mesh is not ported yet "
             "(ROADMAP.md, section A, item 10)")
 
-    from online_detection_tpu_torch.config.config import build_configs, load_yaml
-    from online_detection_tpu_torch.experiments._common import (
-        dataset_canvas,
-        load_params,
-        make_dataset,
-        resolve_config,
-    )
+    from online_detection_tpu_torch.experiments import _common
     from online_detection_tpu_torch.pipelines import device_pipeline as dpipe
     from online_detection_tpu_torch.pipelines import online_pipeline as pipe
     from online_detection_tpu_torch.utils import checkpoint as ckpt
 
-    feat_cfg, online_cfg = {}, {}
-    p = resolve_config(args.config_file_feature_extraction)
-    if p:
-        feat_cfg = load_yaml(p)
-    p = resolve_config(args.config_file_online_rpn_detection_segmentation)
-    if p:
-        online_cfg = load_yaml(p)
-
-    train_cfg, det_cfg, extras = build_configs(feat_cfg, online_cfg,
-                                               args.minibootstrap_iterations)
+    train_cfg, det_cfg, extras = _common.load_configs(
+        args.config_file_feature_extraction,
+        args.config_file_online_rpn_detection_segmentation, args.minibootstrap_iterations)
     train_cfg = train_cfg._replace(
         pos_fraction_feat_stats=args.pos_fraction_feat_stats,
         use_only_gt_positives_detection=args.use_only_gt_positives_detection,
@@ -111,10 +98,10 @@ def main(argv=None):
 
     output_dir = args.output_dir
     os.makedirs(output_dir, exist_ok=True)
-    train_ds = make_dataset(extras["train_datasets"][0], args.data_root)
-    test_ds = make_dataset(extras["test_datasets"][0], args.data_root)
-    params = load_params(args.weights, extras, train_cfg.num_classes).to(dev)
-    canvas = dataset_canvas(train_ds, extras)
+    train_ds = _common.make_dataset(extras["train_datasets"][0], args.data_root)
+    test_ds = _common.make_dataset(extras["test_datasets"][0], args.data_root)
+    params = _common.load_params(args.weights, extras, train_cfg.num_classes).to(dev)
+    canvas = _common.dataset_canvas(train_ds, extras)
     sizes = dict(min_size=extras["min_size_test"], max_size=extras["max_size_test"])
 
     total_t0 = time.time()

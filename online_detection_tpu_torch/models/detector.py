@@ -7,6 +7,10 @@
           -> RoIAlign on detections -> res5 -> conv5_mask deconv
           -> per-pixel FALKON of each detection's class -> 14x14 masks.
 
+``detect_pretrained`` is the stock Mask R-CNN path for checkpoint
+evaluation: the pretrained RPN, res5, the linear box predictors with a
+softmax, per-class NMS, and the 1x1 mask logits.
+
 ``detect_batched`` runs a batch of padded canvases. Per-image stages (top-k,
 NMS, RoIAlign) take the image axis as a batch axis; rowwise stages (the
 on-line heads, res5) run on the batch flattened into rows. Each batch
@@ -32,14 +36,21 @@ import torch.nn as nn
 from online_detection_tpu_torch.data.transforms import normalize_canvas
 from online_detection_tpu_torch.models import resnet
 from online_detection_tpu_torch.models.heads import (
+    BoxPredictor,
     MaskHead,
     OnlineDetectorModels,
     OnlineMaskModels,
     box_predict,
     mask_deconv,
     mask_predict_labels,
+    mask_pretrained_logits,
 )
-from online_detection_tpu_torch.models.postprocess import Detections, postprocess_detections
+from online_detection_tpu_torch.models.postprocess import (
+    NEG_INF,
+    Detections,
+    postprocess_detections,
+    select_mask_channel,
+)
 from online_detection_tpu_torch.models.rpn import (
     OnlineRPNModels,
     RPNHead,
@@ -48,7 +59,9 @@ from online_detection_tpu_torch.models.rpn import (
     rpn_online_flat,
     rpn_pretrained,
 )
+from online_detection_tpu_torch.ops.nms import nms, top_k
 from online_detection_tpu_torch.ops.roi_align import roi_align_batched
+from online_detection_tpu_torch.utils import boxes as box_ops
 from online_detection_tpu_torch.utils.device import ieee_fp32, resolve_device
 
 
@@ -101,13 +114,18 @@ class OnlineModelSet:
 
 
 class DetectorParams(nn.Module):
-    """The frozen network: trunk + res5, RPN head, mask head."""
+    """The frozen network: trunk + res5, RPN head, mask head, and the stock
+    box predictor. A checkpoint may lack the mask head (a Caffe2 file
+    without ``conv5_mask_*``) or the box predictor; those are None then."""
 
-    def __init__(self, backbone: resnet.ResNetC4, rpn: RPNHead, mask_head: MaskHead):
+    def __init__(self, backbone: resnet.ResNetC4, rpn: RPNHead,
+                 mask_head: Optional[MaskHead] = None,
+                 box_predictor: Optional[BoxPredictor] = None):
         super().__init__()
         self.backbone = backbone
         self.rpn = rpn
         self.mask_head = mask_head
+        self.box_predictor = box_predictor
 
 
 def init_detector_params(seed: int = 0, num_anchors: int = 15, num_classes: int = 22,
@@ -237,3 +255,81 @@ def detect(params, online, anchors, image, image_size, cfg: DetectorConfig = Det
                                                 device=device)
     one = Detections(dets.boxes[0], dets.scores[0], dets.labels[0], dets.valid[0])
     return one, None if masks is None else masks[0], props[0], pvalid[0]
+
+
+@ieee_fp32()
+@torch.inference_mode()
+def detect_pretrained(
+    params: DetectorParams,
+    anchors,  # [HW*A, 4]
+    image,  # [H, W, 3] padded canvas (uint8 RGB or normalized f32)
+    image_size,  # (width, height) true size
+    cfg: DetectorConfig = DetectorConfig(),
+    with_masks: bool = False,
+    score_thresh: float = 0.05,
+    nms_thresh: float = 0.5,
+    device=None,
+):
+    """Stock Mask R-CNN inference (the softmax path) of one image, for
+    checkpoint evaluation: pretrained RPN proposals -> res5 -> linear cls /
+    bbox predictors -> softmax, (10, 10, 5, 5) decode with the clipped exp,
+    two-sided clip, per-class NMS (class 0 never kept), global top
+    ``detections_per_img``. Returns (detections [D], mask probabilities
+    [D, 14, 14] or None, proposals [R, 4], proposals_valid [R]); masks need
+    ``with_masks`` and a mask head.
+
+    ``device`` defaults to the card; ``params`` must already live there. The
+    trunk runs in ``resolve_compute_dtype`` (bf16 on the card), the
+    predictors in IEEE fp32."""
+    dev = resolve_device(device)
+    _on(dev, "params", params.rpn.conv_w)
+    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=dev)
+    image = torch.as_tensor(image, device=dev)[None]
+    size = torch.as_tensor(image_size, dtype=torch.float32, device=dev).reshape(1, 2)
+
+    image = normalize_canvas(image).to(resolve_compute_dtype(cfg, dev))
+    c4 = resnet.backbone_c4(params.backbone, image)  # [1, h, w, 1024]
+    t = rpn_features(params.rpn, c4)
+    scores, deltas = rpn_scores_deltas(params.rpn, None, t)
+    prop_boxes, _, prop_valid = propose(
+        scores, deltas, anchors, size,
+        pre_nms_top_n=cfg.pre_nms_top_n, post_nms_top_n=cfg.post_nms_top_n,
+        nms_thresh=cfg.rpn_nms_thresh, min_size=cfg.rpn_min_size,
+    )
+    p = cfg.pooler_resolution
+    pooled = roi_align_batched(c4, prop_boxes, p, cfg.pooler_scale)[0]  # [R, P, P, C]
+    feats = resnet.res5_head(params.backbone, pooled).float()  # [R, 2048]
+    bp = params.box_predictor
+    probs = torch.softmax(feats @ bp.cls_w + bp.cls_b, dim=-1)  # [R, C+1]
+    box_deltas = feats @ bp.bbox_w + bp.bbox_b
+
+    refined = box_ops.decode_boxes(box_deltas, prop_boxes[0], weights=(10.0, 10.0, 5.0, 5.0),
+                                   clip_exp=True)
+    refined = box_ops.clip_boxes_to_image(refined, size[0])
+    r, n_cls = probs.shape
+    per_class_boxes = refined.reshape(r, n_cls, 4).transpose(0, 1)  # [C+1, R, 4]
+    per_class_scores = probs.T  # [C+1, R]
+    keep = (per_class_scores > score_thresh) & prop_valid
+    keep[0] = False  # background is never kept
+    d = cfg.detections_per_img
+    bx, sc, v, _ = nms(per_class_boxes, per_class_scores, keep, nms_thresh, d)  # [C+1, D]
+    flat_scores = torch.where(v, sc, torch.full_like(sc, NEG_INF)).reshape(-1)
+    flat_boxes = bx.reshape(-1, 4)
+    labels = torch.arange(n_cls, dtype=torch.int32, device=dev)[:, None].expand(n_cls, d)
+    labels = labels.reshape(-1)
+    top_scores, idx = top_k(flat_scores, d)
+    out_valid = top_scores > NEG_INF / 2
+    dets = Detections(
+        boxes=flat_boxes[idx] * out_valid[:, None],
+        scores=torch.where(out_valid, top_scores, torch.zeros_like(top_scores)),
+        labels=torch.where(out_valid, labels[idx], torch.zeros_like(labels[idx])),
+        valid=out_valid,
+    )
+
+    mask_probs = None
+    if with_masks and params.mask_head is not None:
+        pooled2 = roi_align_batched(c4, dets.boxes[None], p, cfg.pooler_scale)[0]
+        res5 = resnet.res5_feature_map(params.backbone, pooled2)  # [D, 7, 7, 2048]
+        logits = mask_pretrained_logits(params.mask_head, mask_deconv(params.mask_head, res5))
+        mask_probs = select_mask_channel(logits, dets.labels)
+    return dets, mask_probs, prop_boxes[0], prop_valid[0]

@@ -6,6 +6,9 @@
   classifiers see z-scored features; the regressors see raw ones unless
   ``normalize_regressor_features``.
 - ``mask_deconv``: res5 map -> 2x2/2 transposed conv to 256 ch @ 14x14 -> ReLU.
+- ``BoxPredictor`` and ``mask_pretrained_logits``: the stock (pretrained)
+  heads that ``detect_pretrained`` runs, linear box predictors and the 1x1
+  mask logits.
 - ``mask_predict_labels``: per-pixel FALKON of each RoI's own class only, in
   one grouped mmv launch (one group per RoI, its class's centers picked by
   index).
@@ -59,6 +62,18 @@ class MaskHead(nn.Module):
             self.register_buffer(name, t)
 
 
+class BoxPredictor(nn.Module):
+    """The stock box head's linear predictors, in the JAX layout:
+    ``cls_w`` [D, C+1], ``cls_b`` [C+1], ``bbox_w`` [D, 4(C+1)], ``bbox_b``
+    [4(C+1)]."""
+
+    def __init__(self, cls_w, cls_b, bbox_w, bbox_b):
+        super().__init__()
+        for name, t in (("cls_w", cls_w), ("cls_b", cls_b), ("bbox_w", bbox_w),
+                        ("bbox_b", bbox_b)):
+            self.register_buffer(name, t)
+
+
 def box_predict(models: OnlineDetectorModels, feats: torch.Tensor,
                 normalize_regressor_features: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,6 +93,12 @@ def mask_deconv(head: MaskHead, x: torch.Tensor) -> torch.Tensor:
     transposed conv runs in x's dtype; bias and ReLU in f32."""
     out = F.conv_transpose2d(x.permute(0, 3, 1, 2), head.w.to(x.dtype), stride=2)
     return torch.relu(out.permute(0, 2, 3, 1).float() + head.b)
+
+
+def mask_pretrained_logits(head: MaskHead, x: torch.Tensor) -> torch.Tensor:
+    """The stock path's 1x1 conv ``mask_fcn_logits``: [R, 14, 14, 256] ->
+    [R, 14, 14, C+1] in f32."""
+    return x.float() @ head.logits_w + head.logits_b
 
 
 def mask_predict(models: OnlineMaskModels, deconv_feats: torch.Tensor) -> torch.Tensor:

@@ -146,6 +146,14 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
     return roi_align_batched(features[None], rois[None], pooled, spatial_scale)[0]
 
 
+def roi_align_nchw(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
+                   spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """The reference's NCHW layout: [C, H, W] x [R, 4] -> [R, C, P, P], over
+    ``roi_align`` (kernel B3 on the card)."""
+    out = roi_align(features.permute(1, 2, 0).contiguous(), rois, pooled, spatial_scale)
+    return out.permute(0, 3, 1, 2)
+
+
 def roi_align_fused2_reference(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
                                spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """Plain version of kernel B4: per image and tile of 16 RoIs (the TPU

@@ -27,6 +27,7 @@ from online_detection_tpu_torch.experiments import _common
 from online_detection_tpu_torch.experiments import run_experiment_online_rpn_ood_oos as cli
 from online_detection_tpu_torch.models.weights import params_from_jax
 from tests.test_experiment_cli import FEAT_CFG, ONLINE_CFG
+from tests.test_torch_weights import assert_same_params, r50_narrow_tree, write_pkl
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "experiments"))
 import run_experiment_online_rpn_ood_oos as jax_cli  # noqa: E402
@@ -117,11 +118,19 @@ def test_result_lines_match_the_jax_cli(runs):
 
 
 def test_unported_options_raise(tmp_path):
+    """``--n_devices`` above 1 raises; a weights file, named by ``--weights``
+    or by a MODEL.WEIGHT that resolves to it, is loaded."""
     base = ["--output_dir", str(tmp_path), "--CPU"]
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.main(base + ["--n_devices", "2"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _common.load_params(str(tmp_path / "model.pkl"), {}, 21)
+    tree = r50_narrow_tree()
+    pkl = write_pkl(tmp_path / "model.pkl", tree)
+    want = params_from_jax(tree)
+    for args in ((pkl, {}), (str(tmp_path / "missing.pth"), {"weight": pkl}),
+                 (None, {"weight": pkl})):
+        got = _common.load_params(*args, 21)
+        assert_same_params(got, want)
+        assert got.rpn.conv_w.device.type == "cpu"
 
 
 def test_load_params_without_weights_warns_and_builds_random_init(capsys):

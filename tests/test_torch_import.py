@@ -43,8 +43,8 @@ def test_fresh_import_loads_no_jax():
     assert out[1] == "[]", out
 
 
-# modules of the inference stage, the host route and the flagship CLI, and
-# what each must import without
+# modules of the inference stage, the host route, the CLIs, the checkpoint
+# files and the facades, and what each must import without
 _STAGE_MODULES = {
     "online_detection_tpu_torch.engine.accumulate": None,
     "online_detection_tpu_torch.engine.device_accumulate": None,
@@ -61,6 +61,12 @@ _STAGE_MODULES = {
     "online_detection_tpu_torch.utils.checkpoint": None,
     "online_detection_tpu_torch.utils.telemetry": None,
     "online_detection_tpu_torch.pipelines.online_pipeline": None,
+    "online_detection_tpu_torch.models.weights": None,
+    "online_detection_tpu_torch.experiments.run_experiment_test_feature_task": "yaml",
+    "online_detection_tpu_torch.experiments.weights_smoke": "yaml",
+    "online_detection_tpu_torch.modules": "yaml",
+    "online_detection_tpu_torch.modules.abstract": None,
+    "online_detection_tpu_torch.modules.feature_extractor": "PIL",
 }
 
 
@@ -230,4 +236,33 @@ def test_cli_without_cpu_flag_raises_before_any_work(monkeypatch, tmp_path):
     out = tmp_path / "out"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--output_dir", str(out)])
+    assert touched == [] and not out.exists()
+
+
+def test_checkpoint_entry_points_without_device_raise_before_running(monkeypatch, tmp_path):
+    """With no ``device`` (or ``--CPU``) the stock path, the checksums, the
+    tester CLI, ``weights_smoke`` and the facade target the card; on a host
+    with no card they raise before any work."""
+    from online_detection_tpu_torch.experiments import _common
+    from online_detection_tpu_torch.experiments import run_experiment_test_feature_task as tester
+    from online_detection_tpu_torch.experiments import weights_smoke
+    from online_detection_tpu_torch.models import detector, weights
+    from online_detection_tpu_torch.modules.feature_extractor import FeatureExtractor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    touched = []
+    monkeypatch.setattr(_common, "resolve_config", lambda *a: touched.append(a))
+    monkeypatch.setattr(weights, "load_checkpoint", lambda *a: touched.append(a))
+    out = tmp_path / "out"
+    calls = [
+        lambda: detector.detect_pretrained(None, None, np.zeros((32, 32, 3), np.uint8), (32, 32)),
+        lambda: weights.activation_checksums(None),
+        lambda: tester.main(["--output_dir", str(out), "--models_dir", str(tmp_path)]),
+        lambda: weights_smoke.main(["--weights", str(tmp_path / "m.pkl")]),
+        lambda: weights_smoke.main(["--selftest"]),
+        lambda: FeatureExtractor(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert touched == [] and not out.exists()
