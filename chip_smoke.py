@@ -76,7 +76,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    the ``.pth`` on a PIL-written tree, ``weights_smoke --selftest`` and a
    flagship CLI run with ``--weights``. B2's fp32 route and B3 at this
    path's shapes are held against their plain versions and timed.
-10. Prints one ``{"kernels": [...]}`` line (launches counted over every
+10. The SGD baselines: ``do_train`` at full width (R-50-C4 from a numpy
+   seed, mask head, predictors re-initialised for 22 classes) for 16 steps
+   over 8 teaching images of 800x600 (608x800 canvases) with the solver of
+   ``config_full_train_ycbv.yaml`` (``roi_batch`` 512, ``post_nms_train``
+   300), nothing frozen: finite losses, every leaf moved, the caller's
+   params unchanged, B2, B3 and the RoIAlign backward kernel +1 a step; ms
+   a step, peak GiB, one step traced. The backward kernel is held against
+   its plain version at the step's shapes and on adversarial boxes, and the
+   stem's and RoIAlign's autograd gradients against autograd of their plain
+   versions. Then ``dump_backbone_features`` of the 8 images (B2 +8) and 8
+   fine-tuning steps from the cached maps with the backbone and the RPN's
+   conv frozen (frozen leaves bit-identical, no backward launch); one
+   ``training_loss`` gradient on a small canvas on the card and on the CPU;
+   the two SGD CLIs (``--max_iter 3``; ``--use_backbone_features
+   --max_iter 2``) on a PIL-written tree and the tester CLI over the
+   fine-tuned ``model_final.pkl``.
+11. Prints one ``{"kernels": [...]}`` line (launches counted over every
    path), the card's name and power limit, and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -88,7 +104,8 @@ traced batches' device time by kernel and idle share to
 and log to ``chiprun_out/inference/``.
 Beside them, the host route's traced harvest goes to
 ``host_harvest_profile.txt``, each CLI run's ``result.txt`` to ``cli/`` and
-the traced ``detect_pretrained`` image to ``pretrained_profile.txt``.
+the traced ``detect_pretrained`` image to ``pretrained_profile.txt`` and the
+traced training step to ``sgd_profile.txt``.
 Scratch files (the feature caches, the CLI's tree and outputs, the
 checkpoint files) live under ``.bench/`` and are deleted.
 """
@@ -107,13 +124,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # CUDA sources, one library each
-KERNELS = ("gaussian_mmv", "stem_pool", "roi_align", "roi_align_fused2")
+KERNELS = ("gaussian_mmv", "stem_pool", "roi_align", "roi_align_fused2", "roi_align_backward")
 # launch counters: B1 is two kernels of gaussian_mmv.cu, the centers' tf32
 # split ("tf32_split") and the mmv itself, each launched once per call
-COUNTERS = ("gaussian_mmv", "tf32_split", "stem_pool", "roi_align", "roi_align_fused2")
+COUNTERS = ("gaussian_mmv", "tf32_split", "stem_pool", "roi_align", "roi_align_fused2",
+            "roi_align_backward")
+# the kernels of the on-line system's paths (the RoIAlign backward runs only
+# in the SGD baselines)
+ONLINE_COUNTERS = COUNTERS[:-1]
 # per batch of detect_batched
 EXPECTED_LAUNCHES = {"gaussian_mmv": 3, "tf32_split": 3, "stem_pool": 1, "roi_align": 2,
-                     "roi_align_fused2": 0}
+                     "roi_align_fused2": 0, "roi_align_backward": 0}
 # NVIDIA H100 SXM data sheet, dense: fp32 on CUDA cores, TF32 and bf16 on
 # tensor cores (fp32 accumulate), HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
@@ -651,6 +672,14 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+    return profile_summary(prof, wall_us, out_path, card)
+
+
+def profile_summary(prof, wall_us: float, out_path: Path, card: str) -> dict:
+    """A finished trace's device time by kernel and busy share of
+    ``wall_us``, written to ``out_path`` with a host-operator table."""
+    import torch
+
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
@@ -666,7 +695,8 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
     device_us = sum(v[0] for v in by_name.values())
     groups = {k: sum(v[0] for n, v in by_name.items() if k in n)
               for k in ("mmv_tf32x3_kernel", "split_tf32_kernel", "stem_kernel",
-                        "roi_align_kernel", "roi_align_fused2_kernel", "Memcpy")}
+                        "roi_align_kernel", "roi_align_fused2_kernel",
+                        "roi_align_backward_kernel", "Memcpy")}
     summary = {"card": card, "wall_ms": wall_us / 1e3, "kernel_ms": device_us / 1e3,
                "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us if wall_us else None,
                "port_kernels_ms": {k: v / 1e3 for k, v in groups.items()},
@@ -685,10 +715,10 @@ def profile_batch(run, out_path: Path, card: str) -> dict:
 
 
 class _Anno:
-    def __init__(self, boxes, labels):
+    def __init__(self, boxes, labels, image_id):
         import numpy as np
 
-        self.boxes, self.labels = boxes, labels
+        self.boxes, self.labels, self.image_id = boxes, labels, image_id
         self.difficult = np.zeros(len(labels), bool)
 
 
@@ -706,6 +736,7 @@ class SyntheticTeachingSet:
         h, w = hw
         self.classes = ("__background__",) + tuple(f"object_{c + 1}" for c in range(classes))
         self.images = rng.integers(0, 60, (n, h, w, 3), dtype=np.uint8)
+        self.ids = [f"image_{i:04d}" for i in range(n)]
         self.boxes, self.labels, self.masks = [], [], []
         yy, xx = np.ogrid[:h, :w]
         for i in range(n):  # sides in [min_side, max_side), else up to 3/4 of the image's
@@ -727,7 +758,7 @@ class SyntheticTeachingSet:
         return self.images[i]
 
     def get_annotation(self, i):
-        return _Anno(self.boxes[i], self.labels[i])
+        return _Anno(self.boxes[i], self.labels[i], self.ids[i])
 
     def load_masks(self, i, anno=None):
         return self.masks[i].astype("float32")
@@ -905,7 +936,7 @@ def training_phase(params, seed, card, report, out_dir):
     harvest_s = time.time() - t0
     paths["harvest"] = dict(_build.LAUNCHES)
     want = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": n_batches, "roi_align": 0,
-            "roi_align_fused2": n_batches}
+            "roi_align_fused2": n_batches, "roi_align_backward": 0}
     if paths["harvest"] != want:
         fail(f"harvest launched {paths['harvest']}, expected {want}")
     counts = pool_counts(state, cfg)
@@ -925,7 +956,7 @@ def training_phase(params, seed, card, report, out_dir):
     paths["train"] = dict(_build.LAUNCHES)
     mining = mining_launches(cfg, 20, BATCH_SIZE)
     want = {"gaussian_mmv": mining, "tf32_split": mining, "stem_pool": 0, "roi_align": 0,
-            "roi_align_fused2": 0}
+            "roi_align_fused2": 0, "roi_align_backward": 0}
     if paths["train"] != want:
         fail(f"training launched {paths['train']}, expected {want}")
     trained = check_trained(online, counts, cfg)
@@ -1242,7 +1273,7 @@ def host_route_phase(params, seed, card, report, out_dir):
     harvest_s = time.time() - t0
     paths["host harvest"] = dict(_build.LAUNCHES)
     want = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": TRAIN_IMAGES, "roi_align": 0,
-            "roi_align_fused2": TRAIN_IMAGES}
+            "roi_align_fused2": TRAIN_IMAGES, "roi_align_backward": 0}
     if paths["host harvest"] != want:
         fail(f"host harvest launched {paths['host harvest']}, expected {want}")
     mb_per_image = harvest["host_bytes"] / TRAIN_IMAGES / 1e6
@@ -1267,7 +1298,7 @@ def host_route_phase(params, seed, card, report, out_dir):
     paths["host train"] = dict(_build.LAUNCHES)
     mining = host_mining_launches(cfg, seg_iters)
     want = {"gaussian_mmv": mining, "tf32_split": mining, "stem_pool": 0, "roi_align": 0,
-            "roi_align_fused2": 0}
+            "roi_align_fused2": 0, "roi_align_backward": 0}
     if paths["host train"] != want:
         fail(f"host training launched {paths['host train']}, expected {want}")
     trained = check_host_models(online)
@@ -1497,7 +1528,7 @@ def cli_phase(card, report, out_dir):
     keep = out_dir / "cli"
     shutil.rmtree(keep, ignore_errors=True)
     keep.mkdir()
-    all_kernels = set(COUNTERS)
+    all_kernels = set(ONLINE_COUNTERS)
     runs = (("device route", "device", ["--save_RPN_detector_segmentation_models"],
              all_kernels),
             ("host route, save features", "host",
@@ -1790,7 +1821,8 @@ def pretrained_phase(seed, card, report, out_dir):
             n_valid.append(check_pretrained_detections(dets, masks, cfg))
         paths["detect_pretrained"] = launches = dict(_build.LAUNCHES)
         want = {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": PRETRAINED_IMAGES,
-                "roi_align": 2 * PRETRAINED_IMAGES, "roi_align_fused2": 0}
+                "roi_align": 2 * PRETRAINED_IMAGES, "roi_align_fused2": 0,
+                "roi_align_backward": 0}
         if launches != want:
             fail(f"detect_pretrained launched {launches}, expected {want}")
         steady = times[1:]
@@ -1874,12 +1906,434 @@ def pretrained_phase(seed, card, report, out_dir):
             fail(f"CLI with --weights: result.txt lines {keys}")
         flag_maps = {k: flag[k] for k in ("det_map_0.5", "segm_map_0.5")}
         if not all(math.isfinite(v) for v in flag_maps.values()) or any(
-                launches[k] == 0 for k in COUNTERS):
+                launches[k] == 0 for k in ONLINE_COUNTERS):
             fail(f"CLI with --weights: mAPs {flag_maps}, launches {launches}")
         print(f"flagship CLI (device route) with --weights {Path(pkl).name}: {flag_s:.2f} s, "
               f"mAPs {flag_maps}, launches {launches} on {card}", flush=True)
         rec.update(tester_s=tester_s, tester_maps=maps, selftest_s=selftest_s,
                    cli_weights_s=flag_s, cli_weights_maps=flag_maps)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["launches"] = paths
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# the SGD baselines: full training and fine-tuning from cached backbone maps
+
+SGD_IMAGES, SGD_STEPS, FT_STEPS = 8, 16, 8
+# the step traced with torch.profiler (its time stays out of the median)
+SGD_TRACED_STEP = 14
+# the CLIs' tree and solver config (the SGD test config of
+# tests/test_experiment_cli_all.py, full width)
+CLI_SGD_CFG = CLI_FEAT_CFG.replace("  MASK_ON: True", """    POST_NMS_TOP_N_TRAIN: 30
+  ROI_HEADS:
+    BATCH_SIZE_PER_IMAGE: 32
+  MASK_ON: True""").replace("EVALUATION:", """SOLVER:
+  BASE_LR: 0.005
+  WARMUP_ITERS: 0
+  STEPS: (48000, 64000)
+  WEIGHT_DECAY: 0.0005
+EVALUATION:""")
+
+
+def sgd_params(seed):
+    """Full-width R-50-C4 from a numpy seed, 15 anchors, mask head, its
+    predictors re-initialised for 22 classes as the SGD CLIs do, on the CPU."""
+    from online_detection_tpu_torch.experiments._common import reinit_predictors
+    from online_detection_tpu_torch.models.detector import init_detector_params
+
+    return reinit_predictors(init_detector_params(seed, N_ANCHORS, N_CLASSES + 1), N_CLASSES,
+                             True)
+
+
+def leaves_of(params):
+    """JAX path -> a CPU copy of each tensor."""
+    from online_detection_tpu_torch.engine.trainer import named_leaves
+
+    return {p: t.detach().cpu().clone() for p, t in named_leaves(params)}
+
+
+def step_inputs(params, ds, cfg, dev, gen):
+    """One full-train step's RoIAlign inputs, as ``training_loss`` makes
+    them: the C4 map [1, 38, 50, 1024] f32 of the first image and the
+    ``roi_batch`` sampled boxes [1, 512, 4] (proposals and GT)."""
+    import torch
+
+    from online_detection_tpu_torch.data.transforms import normalize_canvas
+    from online_detection_tpu_torch.engine import losses
+    from online_detection_tpu_torch.engine.trainer import host_batch
+    from online_detection_tpu_torch.models import resnet
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.rpn import propose, rpn_features, rpn_pretrained
+
+    anchors_np = grid_anchors(CANVAS[0] // 16, CANVAS[1] // 16)
+    host = host_batch(ds, 0, CANVAS, TRAIN_HW[0], 1333, 20, anchors_np, False, 0.0, None,
+                       False)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    c4 = resnet.backbone_c4(params.backbone, normalize_canvas(b["image"])[None])
+    logits, deltas = rpn_pretrained(params.rpn, rpn_features(params.rpn, c4))
+    boxes, _, valid = propose(logits.reshape(1, -1), deltas.reshape(1, -1, 4),
+                              torch.from_numpy(anchors_np).to(dev), b["image_size"][None],
+                              post_nms_top_n=cfg.post_nms_train)
+    sample = losses.sample_rois(torch.cat([boxes[0], b["gt_boxes"]]),
+                                torch.cat([valid[0], b["gt_valid"]]), b["gt_boxes"],
+                                b["gt_labels"], b["gt_valid"], cfg.roi_batch, generator=gen)
+    return c4.contiguous(), sample.boxes[None].contiguous()
+
+
+def check_roi_backward(c4, rois, seed, report):
+    """The RoIAlign backward kernel against its plain version at a training
+    step's shapes (g [1, 512, 14, 14, 1024] f32 onto a 38 x 50 map) and on
+    the adversarial boxes over a 38 x 50 and a 50 x 84 map; the plain version
+    runs on the CPU for the check, as the forward's adversarial checks do
+    (its einsums drift on the card), and on the card for its time. Within
+    1e-5 of max|ref|: fp32 sums, and atomics whose order changes from run to
+    run. Then RoIAlign's autograd gradient (B3 forward, this backward)
+    against autograd of the plain version on the card."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.ops.roi_align import (
+        roi_align, roi_align_backward, roi_align_backward_reference, roi_align_reference)
+
+    rng = np.random.default_rng(seed + 11)
+    rec = report.setdefault("roi_align_backward", {"calls": []})
+    _, h, w, c = c4.shape
+    g = torch.from_numpy(rng.normal(size=(1, rois.shape[1], 14, 14, c)).astype(np.float32)).cuda()
+    got = roi_align_backward(g, rois, h, w)
+    ref = roi_align_backward_reference(g.cpu(), rois.cpu(), h, w)
+    check_close("roi_align_backward", got.cpu(), ref, 1e-5 * ref.abs().max(), report)
+    card_plain = roi_align_backward_reference(g, rois, h, w)
+    ms = timed(lambda: roi_align_backward(g, rois, h, w), 10)
+    plain = timed(lambda: roi_align_backward_reference(g, rois, h, w), 3)
+    flops = roi_ops(rois, h, w, c)
+    nbytes = 4.0 * (g.numel() + got.numel() + rois.numel())
+    bound, by = bound_of(flops, nbytes)
+    add_call(rec, {"role": "training step", "shape": list(g.shape), "ms": ms, "plain_ms": plain,
+                   "bound_ms": bound, "flops": flops, "bytes": nbytes,
+                   "card_plain_max_abs_err": float((card_plain - got).abs().max())})
+    print(f"  roi_align_backward[training step] {list(g.shape)} -> {list(got.shape)} f32: "
+          f"{ms:.3f} ms (plain {plain:.3f} ms; bound {bound:.3f} ms, {by}: {bound / ms:.0%} of "
+          f"it); max err {float((got.cpu() - ref).abs().max()):.3g} of max|ref| "
+          f"{float(ref.abs().max()):.3g}", flush=True)
+
+    worst = {}
+    for hh, ww in ((38, 50), (50, 84)):
+        adv = torch.from_numpy(adversarial_rois(rng, 2, 24, 16.0 * ww)).cuda()
+        ga = torch.from_numpy(rng.normal(size=(2, 24, 14, 14, 1024)).astype(np.float32)).cuda()
+        got_a = roi_align_backward(ga, adv, hh, ww).cpu()
+        ref_a = roi_align_backward_reference(ga.cpu(), adv.cpu(), hh, ww)
+        check_close("roi_align_backward", got_a, ref_a, 1e-5 * ref_a.abs().max(), report)
+        worst[f"{hh}x{ww}"] = float((got_a - ref_a).abs().max())
+    rec["adversarial_max_abs_err"] = worst
+
+    f = c4.detach().clone().requires_grad_(True)
+    f_ref = c4.detach().clone().requires_grad_(True)
+    ct = g[0]
+    (roi_align(f[0], rois[0]) * ct).sum().backward()
+    (roi_align_reference(f_ref, rois)[0] * ct).sum().backward()
+    check_close("roi_align_backward", f.grad, f_ref.grad, 1e-5 * f_ref.grad.abs().max(), report)
+    rec["autograd_max_abs_err"] = float((f.grad - f_ref.grad).abs().max())
+    rec["tolerance"] = "1e-5 max|ref| (fp32 sums; atomics in an order that changes run to run)"
+    print(f"  roi_align_backward on adversarial boxes (C=1024, 2x24 boxes, 38x50 and 50x84 "
+          f"maps): max err {worst}; RoIAlign autograd vs plain autograd on the card: "
+          f"{rec['autograd_max_abs_err']:.3g}", flush=True)
+
+
+def check_stem_grad(params, ds, report):
+    """The stem's autograd gradient in (w, scale, bias): B2's fp32 route and
+    ``stem_backward`` against autograd of the plain version on the card, on
+    a training canvas [1, 608, 800, 3]. The gradient follows the recomputed
+    pre-pool map: where a window's two largest positive values tie exactly
+    (flat patches) both sides take the first, as the JAX package does; where
+    they lie within rounding (a near tie) the kernel's forward may have
+    taken the other. Both kinds of window are counted (ties at ReLU zeros
+    carry no gradient). Within 1e-4 of each gradient's max|ref|: the weight
+    gradient sums 121,600 window maxima of fp32 products."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from online_detection_tpu_torch.data.transforms import normalize_canvas
+    from online_detection_tpu_torch.ops.stem_pool import stem_fused, stem_reference
+
+    st = params.backbone.stem
+    img = np.zeros(CANVAS + (3,), np.uint8)
+    im = ds.load_image(0)
+    img[:im.shape[0], :im.shape[1]] = im
+    x = normalize_canvas(torch.from_numpy(img[None]).cuda())
+    rng = np.random.default_rng(5)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (st.weight, st.scale, st.bias)]
+    refs = [t.detach().clone().requires_grad_(True) for t in (st.weight, st.scale, st.bias)]
+    out = stem_fused(x, *leaves)
+    ct = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(np.float32)).cuda()
+    (out * ct).sum().backward()
+    (stem_reference(x, *refs) * ct).sum().backward()
+    errs = {}
+    for name, a, b in zip(("w", "scale", "bias"), leaves, refs):
+        check_close("stem_pool grad", a.grad, b.grad, 1e-4 * b.grad.abs().max(), report)
+        errs[name] = float((a.grad - b.grad).abs().max() / b.grad.abs().max())
+    with torch.no_grad():  # windows whose two largest positive values tie or nearly do
+        z = F.conv2d(x.permute(0, 3, 1, 2), st.weight, stride=2, padding=3)
+        r = torch.relu(z * st.scale[:, None, None] + st.bias[:, None, None])
+        win = F.unfold(F.pad(r, (1, 1, 1, 1), value=-1.0).reshape(-1, 1, *[d + 2 for d in
+                       r.shape[2:]]), 3, stride=2)  # [64, 9, windows]
+        top2 = win.topk(2, dim=1).values
+        gap = top2[:, 0] - top2[:, 1]
+        positive = top2[:, 0] > 0
+        exact = int((positive & (gap == 0)).sum())  # flat patches: the same sums
+        near = int((positive & (gap > 0) & (gap <= 1e-6 * top2[:, 0])).sum())
+    stats = {"relative_max_err": errs, "exact_tie_windows": exact, "near_tie_windows": near,
+             "windows": int(top2[:, 0].numel()),
+             "tolerance": "1e-4 max|ref| (fp32 sums; a near tie may move one window's gradient)"}
+    report["stem_pool"]["grad"] = stats
+    print(f"  stem_pool gradient (kernel forward + stem_backward vs plain autograd) on "
+          f"{list(x.shape)}: relative max err {errs}; windows with an exact tie {exact}, "
+          f"a near tie (within 1e-6) {near}, of {stats['windows']}", flush=True)
+
+
+def small_sgd_reference_check(params, report, dev):
+    """One ``training_loss`` gradient on a 128x192 canvas at full channel
+    width on the card (B2, B3 and the backward kernel, IEEE fp32) and on the
+    CPU (plain versions), with the same params and the same draws
+    (``roi_batch`` 32, ``post_nms_train`` 30): the loss within 1e-4 relative,
+    every leaf's gradient within 2e-3 of its max|ref| (the CPU tests hold the
+    port to the JAX package at the same tolerance)."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.engine.trainer import (
+        SGDConfig, host_batch, named_leaves, trainable_copy, training_loss)
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.utils.device import ieee_fp32
+
+    h, w = 128, 192
+    ds = SyntheticTeachingSet(1, (h, w), N_CLASSES, 9, min_side=32, max_side=96)
+    cfg = SGDConfig(post_nms_train=30, roi_batch=32)
+    anchors = grid_anchors(h // 16, w // 16)
+    host = host_batch(ds, 0, (h, w), h, 320, 20, anchors, True, 0.0, None, False)
+    rng = np.random.default_rng(17)
+    draws = [rng.random(anchors.shape[0]), rng.random(anchors.shape[0]), rng.random(50),
+             rng.random(50)]
+
+    def grads(device):
+        p, _ = trainable_copy(params, torch.device(device), cfg)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        u = [torch.from_numpy(d.astype(np.float32)).to(device) for d in draws]
+        with ieee_fp32():
+            loss = training_loss(p, batch, torch.from_numpy(anchors).to(device), cfg, True, u)
+            loss.backward()
+        return float(loss.detach()), {k: t.grad.cpu() for k, t in named_leaves(p)}
+
+    lg, gg = grads(dev)
+    lc, gc = grads("cpu")
+    worst = max(float((gg[k] - gc[k]).abs().max() / gc[k].abs().max().clamp(min=1e-30))
+                for k in gc)
+    err = {"loss": [lg, lc], "leaves": len(gc), "worst_relative_leaf_err": worst}
+    report["sgd"]["small_reference"] = err
+    print(f"  training_loss gradient, card vs CPU plain path on {h}x{w}: {err}", flush=True)
+    if abs(lg - lc) > 1e-4 * abs(lc) or worst > 2e-3:
+        fail(f"training_loss gradient: card and CPU disagree: {err}")
+
+
+def sgd_phase(seed, card, report, out_dir, dev):
+    """The SGD baselines at full width: ``do_train`` for SGD_STEPS steps over
+    SGD_IMAGES 800x600 teaching images (608x800 canvases) with the solver of
+    ``config_full_train_ycbv.yaml``, nothing frozen (B2, B3 and the RoIAlign
+    backward +1 a step; one step traced); the kernels' gradients against
+    their plain versions; then ``dump_backbone_features`` of the images (B2
+    +1 an image) and FT_STEPS fine-tuning steps from the cached maps with
+    the backbone and the RPN's conv frozen (bit-identical afterwards, no
+    RoIAlign backward); the card against the CPU on a small canvas; then the
+    two SGD CLIs and the tester over the fine-tuned ``model_final.pkl``."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from online_detection_tpu_torch.data.datasets.synthetic import make_synthetic_icwt
+    from online_detection_tpu_torch.engine.backbone_cache import (
+        FromFeatDataset, dump_backbone_features)
+    from online_detection_tpu_torch.engine.trainer import SGDConfig, do_train, freeze_mask
+    from online_detection_tpu_torch.experiments import run_experiment_fine_tuning as ft_cli
+    from online_detection_tpu_torch.experiments import run_experiment_full_train as full_cli
+    from online_detection_tpu_torch.experiments import run_experiment_test_feature_task as tester
+    from online_detection_tpu_torch.experiments._common import load_configs
+    from online_detection_tpu_torch.ops import _build
+    from online_detection_tpu_torch.utils.device import ieee_fp32
+
+    rec = report.setdefault("sgd", {"card": card})
+    work = ROOT / ".bench" / "sgd"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {}
+    try:
+        _, _, extras = load_configs("config_full_train_ycbv.yaml", None)
+        cfg = SGDConfig(**extras["sgd"])._replace(max_iter=SGD_STEPS)
+        params = sgd_params(seed + 7)
+        caller = leaves_of(params)
+        ds = teaching_set(SGD_IMAGES, seed + 8)
+
+        marks, snaps, trace = [], [], {}
+
+        def each_step(_, it):  # after step it >= 1: the counters, and the time
+            torch.cuda.synchronize()
+            end = time.time()
+            snaps.append(dict(_build.LAUNCHES))
+            if it == SGD_TRACED_STEP - 1:
+                trace["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                trace["prof"].__enter__()
+                trace["t0"] = time.time()
+            elif it == SGD_TRACED_STEP:
+                trace["prof"].__exit__(None, None, None)
+                trace["wall_us"] = (end - trace["t0"]) * 1e6
+            # (step it's end, the next step's start): this callback's own work is no step's
+            marks.append((end, time.time()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.time()
+        trained, hist = do_train(params, ds, CANVAS, cfg, torch.Generator().manual_seed(seed),
+                                 with_mask=True, min_size=TRAIN_HW[0], log_every=4,
+                                 val_fn=each_step, val_period=1, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.time() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        paths["sgd full train"] = launches = dict(_build.LAUNCHES)
+        want = {k: 0 for k in COUNTERS}
+        want.update(stem_pool=SGD_STEPS, roi_align=SGD_STEPS, roi_align_backward=SGD_STEPS)
+        if launches != want:
+            fail(f"full training launched {launches}, expected {want}")
+        for it, snap in enumerate(snaps, start=1):  # +1 of each a step
+            if any(snap[k] != it + 1 for k in ("stem_pool", "roi_align", "roi_align_backward")):
+                fail(f"after step {it} the counters read {snap}: B2, B3 and the backward must "
+                     f"rise by one a step")
+        if len(hist) != SGD_STEPS or not all(math.isfinite(v) for v in hist):
+            fail(f"full training losses {hist}")
+        after = leaves_of(trained)
+        still = [k for k in caller if torch.equal(after[k], caller[k])]
+        if still:
+            fail(f"full training left {len(still)} trainable leaves unmoved: {still[:5]}")
+        if any(not torch.equal(t, caller[k]) for k, t in leaves_of(params).items()):
+            fail("do_train changed the caller's params")
+        step_ms = [(b[0] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])]  # steps 2, 3, ...
+        steady = [t for i, t in enumerate(step_ms, start=2) if i != SGD_TRACED_STEP]
+        profiled = profile_summary(trace["prof"], trace["wall_us"], out_dir / "sgd_profile.txt",
+                                   card)
+        rec.update(config={k: v for k, v in cfg._asdict().items()}, losses=hist,
+                   step_ms=step_ms, median_step_ms=float(np.median(steady)),
+                   train_s=train_s, peak_gib=peak_gib, launches=launches, profile=profiled)
+        print(f"do_train (full training, nothing frozen) {SGD_STEPS} steps over {SGD_IMAGES} "
+              f"images at {CANVAS[1]}x{CANVAS[0]}, roi_batch {cfg.roi_batch}, post_nms_train "
+              f"{cfg.post_nms_train}, base_lr {cfg.base_lr}, wd {cfg.weight_decay}, warmup "
+              f"{cfg.warmup_iters}: {train_s:.2f} s; ms a step (steps 2-{SGD_STEPS - 1}) "
+              f"{[round(t, 2) for t in step_ms]}, median {rec['median_step_ms']:.2f} (traced "
+              f"step {SGD_TRACED_STEP} left out); losses {[round(v, 4) for v in hist]}; peak "
+              f"{peak_gib:.2f} GiB; launches {launches} on {card}", flush=True)
+        print(f"profile of training step {SGD_TRACED_STEP}: {json.dumps(profiled)}", flush=True)
+
+        with ieee_fp32():
+            c4, rois = step_inputs(trained, ds, cfg, dev, torch.Generator().manual_seed(1))
+            check_roi_backward(c4.detach(), rois.detach(), seed, report)
+            del c4
+            check_stem_grad(trained, ds, report)
+        del trained
+        torch.cuda.empty_cache()
+
+        # fine-tuning from the cached backbone maps
+        on_card = sgd_params(seed + 7).to(dev)
+        _build.reset_launches()
+        t0 = time.time()
+        feat_dir = dump_backbone_features(on_card, ds, str(work), CANVAS, TRAIN_HW[0], 1333,
+                                          device=dev)
+        dump_s = time.time() - t0
+        paths["sgd backbone dump"] = launches = dict(_build.LAUNCHES)
+        want = {k: 0 for k in COUNTERS}
+        want.update(stem_pool=SGD_IMAGES)
+        if launches != want:
+            fail(f"dump_backbone_features launched {launches}, expected {want}")
+        ft_cfg = cfg._replace(max_iter=FT_STEPS, freeze_backbone=True,
+                              freeze_rpn_except_logits=True)
+        _build.reset_launches()
+        t0 = time.time()
+        tuned, ft_hist = do_train(on_card, FromFeatDataset(ds, feat_dir), CANVAS, ft_cfg,
+                                  torch.Generator().manual_seed(seed), with_mask=True,
+                                  min_size=TRAIN_HW[0], log_every=4, device=dev)
+        torch.cuda.synchronize()
+        ft_s = time.time() - t0
+        paths["sgd fine-tune"] = launches = dict(_build.LAUNCHES)
+        want = {k: 0 for k in COUNTERS}
+        want.update(roi_align=FT_STEPS)
+        if launches != want:
+            fail(f"fine-tuning from features launched {launches}, expected {want}")
+        mask = freeze_mask(tuned, ft_cfg)
+        after = leaves_of(tuned)
+        moved_frozen = [k for k, m in mask.items() if not m and not torch.equal(after[k], caller[k])]
+        still = [k for k, m in mask.items() if m and torch.equal(after[k], caller[k])]
+        if moved_frozen or still or not all(math.isfinite(v) for v in ft_hist):
+            fail(f"fine-tuning: frozen leaves moved {moved_frozen[:5]}, trainable leaves "
+                 f"unmoved {still[:5]}, losses {ft_hist}")
+        n_frozen = sum(1 for m in mask.values() if not m)
+        rec.update(dump_s=dump_s, fine_tune_s=ft_s, fine_tune_losses=ft_hist,
+                   frozen_leaves=n_frozen, fine_tune_launches=launches)
+        print(f"dump_backbone_features of {SGD_IMAGES} images: {dump_s:.2f} s; fine-tuning "
+              f"{FT_STEPS} steps from the cached maps ({n_frozen} frozen leaves bit-identical "
+              f"afterwards): {ft_s:.2f} s, losses {[round(v, 4) for v in ft_hist]}, launches "
+              f"{launches} on {card}", flush=True)
+        del on_card, tuned
+        torch.cuda.empty_cache()
+
+        small_sgd_reference_check(params, report, dev)
+
+        # the CLIs on a PIL-written tree
+        root = work / "ycbv_synth"
+        make_synthetic_icwt(str(root), n_train=8, n_test=4, image_hw=(240, 320))
+        (work / "feat.yaml").write_text(CLI_SGD_CFG.format(root=root))
+        clis = {}
+        for name, main, flags, steps, rise in (
+                ("full_train", full_cli.main, [], 3,
+                 {"stem_pool": 3, "roi_align": 3, "roi_align_backward": 3}),
+                ("fine_tuning", ft_cli.main, ["--use_backbone_features"], 2,
+                 {"stem_pool": 8, "roi_align": 2})):
+            out = work / name
+            _build.reset_launches()
+            t0 = time.time()
+            main(["--output_dir", str(out), "--config_file", str(work / "feat.yaml"),
+                  "--max_iter", str(steps)] + flags)
+            run_s = time.time() - t0
+            paths[f"cli {name}"] = launches = dict(_build.LAUNCHES)
+            want = {k: 0 for k in COUNTERS}
+            want.update(rise)
+            h = np.load(out / "loss_history.npy")
+            with open(out / "model_final.pkl", "rb") as f:
+                tree = pickle.load(f)
+            if launches != want or len(h) != steps or not np.isfinite(h).all() or \
+                    tree["box_predictor"]["cls_w"].shape != (2048, 20):
+                fail(f"{name} CLI: launches {launches} (expected {want}), losses {h}")
+            clis[name] = {"seconds": run_s, "losses": h.tolist(), "launches": launches}
+            print(f"  {name} CLI --max_iter {steps} {' '.join(flags)}: {run_s:.2f} s, losses "
+                  f"{h.tolist()}, launches {launches} on {card}", flush=True)
+        _build.reset_launches()
+        t0 = time.time()
+        results = tester.main(["--output_dir", str(work / "tester"), "--models_dir",
+                               str(work / "fine_tuning"), "--config_file", str(work / "feat.yaml")])
+        tester_s = time.time() - t0
+        paths["cli tester"] = launches = dict(_build.LAUNCHES)
+        maps = {Path(k).name: {m: r[m] for m in ("det_map_0.5", "segm_map_0.5")}
+                for k, r in results.items()}
+        if list(maps) != ["model_final.pkl"] or not all(
+                math.isfinite(v) for r in maps.values() for v in r.values()):
+            fail(f"tester CLI over the fine-tuned checkpoint: {maps}")
+        if launches["stem_pool"] != 4 or launches["roi_align"] != 8:
+            fail(f"tester CLI over 4 images launched {launches}")
+        clis["tester"] = {"seconds": tester_s, "maps": maps, "launches": launches}
+        print(f"  tester CLI over the fine-tuned model_final.pkl: {tester_s:.2f} s, mAPs {maps}, "
+              f"launches {launches} on {card}", flush=True)
+        rec["clis"] = clis
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rec["launches"] = paths
@@ -2011,6 +2465,8 @@ def main(argv=None) -> int:
     host_paths.update(cli_phase(card, report, out_dir))
     print("checkpoint files and the stock path:", flush=True)
     host_paths.update(pretrained_phase(args.seed, card, report, out_dir))
+    print("the SGD baselines:", flush=True)
+    host_paths.update(sgd_phase(args.seed, card, report, out_dir, dev))
     for path in list(train_paths.values()) + [infer_launches] + list(host_paths.values()):
         for k, n in path.items():
             launches[k] += n
@@ -2025,6 +2481,9 @@ def main(argv=None) -> int:
           f"{b3['bound_ms']:.3f} ms); B4 per harvest batch: {b4['ms']:.3f} ms (replaced kernel "
           f"{REPLACED_ROI_MS['harvest']:.3f} ms; bound {b4['bound_ms']:.3f} ms) on {card}",
           flush=True)
+    bw = report["roi_align_backward"]
+    print(f"RoIAlign backward per training step: {bw['ms']:.3f} ms (plain {bw['plain_ms']:.3f} "
+          f"ms; bound {bw['bound_ms']:.3f} ms, {bw['bound_by']}) on {card}", flush=True)
 
     replaces = {  # the split is B1's operand preparation
         "gaussian_mmv": "online_detection_tpu/ops/gaussian_mmv.py:219",
@@ -2032,10 +2491,17 @@ def main(argv=None) -> int:
         "stem_pool": "online_detection_tpu/ops/stem_pool.py:150",
         "roi_align": "online_detection_tpu/ops/roi_align.py:175",
         "roi_align_fused2": "online_detection_tpu/ops/roi_align.py:311",
+        # the gradient of the function B3 computes, which the JAX trainer
+        # takes with jax.grad of roi_align (XLA; no Pallas backward exists)
+        "roi_align_backward": "online_detection_tpu/ops/roi_align.py:73",
     }
     # the stock path's calls: B2's fp32 route and B3 at its shapes
-    extra = {"stem_pool": {"f32_route": report["stem_pool"]["f32_route"]},
-             "roi_align": {"pretrained_calls": report["roi_align"]["pretrained_calls"]}}
+    bw = report["roi_align_backward"]
+    extra = {"stem_pool": {"f32_route": report["stem_pool"]["f32_route"],
+                           "grad": report["stem_pool"]["grad"]},
+             "roi_align": {"pretrained_calls": report["roi_align"]["pretrained_calls"]},
+             "roi_align_backward": {k: bw[k] for k in ("tolerance", "adversarial_max_abs_err",
+                                                       "autograd_max_abs_err")}}
     sources = {k: k for k in KERNELS}
     sources["tf32_split"] = "gaussian_mmv"
     line = {"kernels": [
@@ -2054,7 +2520,8 @@ def main(argv=None) -> int:
          "small_reference": report["small_reference"],
          "small_training_reference": report["small_training_reference"],
          "host_route": report["host_route"], "feature_cache": report["feature_cache"],
-         "cli": report["cli"], "pretrained": report["pretrained"],
+         "cli": report["cli"], "pretrained": report["pretrained"], "sgd": report["sgd"],
+         "stem_pool_grad": report["stem_pool grad"],
          "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,
          "tensor_core_sass": sass,

@@ -105,3 +105,27 @@ def dataset_canvas(dataset, extras):
 
     info = dataset.get_annotation(0)
     return canvas_size(info.width, info.height, extras["min_size_test"], extras["max_size_test"])
+
+
+def reinit_predictors(params, num_classes, mask_on):
+    """Re-initialises the output layers for NUM_CLASSES + 1 classes, in place,
+    from ``np.random.default_rng(0)`` as the JAX package's SGD CLIs do
+    (``train_feature_task.py:109-120``): the box predictor always, the mask
+    logits when MASK_ON is set and the network has a mask head."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.heads import BoxPredictor
+
+    n_cls = num_classes + 1
+    rng = np.random.default_rng(0)
+
+    def normal(std, shape):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32))
+
+    params.box_predictor = BoxPredictor(normal(0.01, (2048, n_cls)), torch.zeros(n_cls),
+                                        normal(0.001, (2048, 4 * n_cls)), torch.zeros(4 * n_cls))
+    if mask_on and params.mask_head is not None:
+        params.mask_head.logits_w = normal(0.01, (256, n_cls))
+        params.mask_head.logits_b = torch.zeros(n_cls)
+    return params

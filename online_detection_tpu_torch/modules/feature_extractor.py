@@ -5,7 +5,8 @@ package's ``modules/feature_extractor.py``).
 harvest (``harvest_dataset``) with the flags of each reference backend
 (``feature-extractor/feature_extractor.py:10-82``), and the injected on-line
 RPN models (``falkon_rpn_models`` etc.) become its ``online_rpn`` argument.
-``testFeatureExtractor`` evaluates the network itself through the stock
+``trainFeatureExtractor`` SGD-trains the network (``engine/trainer.py::
+do_train``), and ``testFeatureExtractor`` evaluates it through the stock
 softmax path (``detect_pretrained``). ``AccuracyEvaluator`` runs
 ``run_inference`` with the on-line models passed in. Both run on ``device``
 (the card by default; the parameters are moved there).
@@ -91,9 +92,19 @@ class FeatureExtractor(abstract.FeatureExtractorAbstract):
         return harvest
 
     def trainFeatureExtractor(self, output_dir=None, **kw):
-        raise NotImplementedError(
-            "trainFeatureExtractor: the SGD trainer is not ported yet "
-            "(ROADMAP.md, section A, item 9)")
+        """SGD-trains the network on the dataset (``do_train``; ``sgd``: the
+        ``SGDConfig`` fields, ``time_budget``: seconds) with the facade's
+        generator; the trained params replace ``self.params`` and are
+        returned."""
+        from online_detection_tpu_torch.engine.trainer import SGDConfig, do_train
+
+        cfg = SGDConfig(**kw.get("sgd", {}))
+        params, _ = do_train(
+            self.params, self.dataset, self.canvas_hw, cfg, self.generator,
+            with_mask=self.extras.get("mask_on", False), time_budget=kw.get("time_budget"),
+            min_size=self.min_size, max_size=self.max_size, device=self.device)
+        self.params = params
+        return params
 
     def testFeatureExtractor(self, output_dir=None, dataset=None, score_thresh: float = 0.05,
                              nms_thresh: float = 0.5):

@@ -19,6 +19,15 @@ takes its plain version: ``roi_align_reference``, the separable form
 package's ``roi_align_fused2`` computes it (stage 1 contracts H, stage 2 W).
 
 All of them accumulate in fp32 and round once to the features' dtype.
+
+``roi_align_batched`` and ``roi_align`` are differentiable in ``features``
+(``RoIAlignFunction``) when autograd records: the forward is the same call,
+the backward ``roi_align_backward``, the transpose ``dF = sum_r A_r^T g_r
+B_r``: kernel ``csrc/roi_align_backward.cu`` on a CUDA tensor (its own launch
+counter), ``roi_align_backward_reference`` on a CPU tensor. The boxes get no
+gradient: the JAX trainer stops the proposals' gradient, and GT boxes are
+constants. A call that autograd does not record (no grad, or
+``inference_mode``) takes the forward alone, as before.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from online_detection_tpu_torch.ops import _build
 
 _KERNEL = "roi_align"
 _FUSED2 = "roi_align_fused2"
+_BACKWARD = "roi_align_backward"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SAMPLES = 8
 # what the kernels take (roi::MAX_POOLED and roi::MAX_DIM in
@@ -74,13 +84,15 @@ def _matrices(rois: torch.Tensor, pooled: int, h: int, w: int, spatial_scale: fl
 
 def roi_align_reference(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
                         spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
-    """Plain version. features [B, H, W, C], rois [B, R, 4] -> [B, R, P, P, C]."""
+    """Plain version. features [B, H, W, C], rois [B, R, 4] -> [B, R, P, P, C]
+    (float64 features are summed in float64)."""
     _, h, w, _ = features.shape
+    ct = torch.promote_types(features.dtype, torch.float32)
     outs = []
     for f, r in zip(features, rois):  # one image at a time bounds the intermediate
         a, b = _matrices(r, pooled, h, w, spatial_scale)  # [R, P, H], [R, P, W]
-        t = torch.einsum("rqw,hwc->rhqc", b, f.float())
-        outs.append(torch.einsum("rph,rhqc->rpqc", a, t).to(features.dtype))
+        t = torch.einsum("rqw,hwc->rhqc", b.to(ct), f.to(ct))
+        outs.append(torch.einsum("rph,rhqc->rpqc", a.to(ct), t).to(features.dtype))
     return torch.stack(outs)
 
 
@@ -132,12 +144,84 @@ def _launch(name: str, features, rois, pooled, spatial_scale):
     return out
 
 
-def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
-                      spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
-    """Batched RoIAlign: [B, H, W, C] x [B, R, 4] -> [B, R, P, P, C]."""
+def _forward(features, rois, pooled, spatial_scale):
     if features.is_cuda:
         return _launch(_KERNEL, features, rois, pooled, spatial_scale)
     return roi_align_reference(features, rois, pooled, spatial_scale)
+
+
+def roi_align_backward_reference(grad: torch.Tensor, rois: torch.Tensor, h: int, w: int,
+                                 pooled: int = 14, spatial_scale: float = 1.0 / 16.0,
+                                 roi_chunk: int = 64) -> torch.Tensor:
+    """Plain version of the backward: grad [B, R, P, P, C], rois [B, R, 4] ->
+    dF [B, H, W, C] f32 (f64 for a float64 grad), ``dF = sum_r A_r^T g_r
+    B_r`` with the forward's interpolation matrices, ``roi_chunk`` RoIs at a
+    time (the intermediate is [chunk, P, W, C])."""
+    b, r = rois.shape[:2]
+    ct = torch.promote_types(grad.dtype, torch.float32)
+    out = grad.new_zeros((b, h, w, grad.shape[-1]), dtype=ct)
+    for i in range(b):
+        for r0 in range(0, r, roi_chunk):
+            a, bm = _matrices(rois[i, r0:r0 + roi_chunk], pooled, h, w, spatial_scale)
+            t = torch.einsum("rpqc,rqw->rpwc", grad[i, r0:r0 + roi_chunk].to(ct), bm.to(ct))
+            out[i] += torch.einsum("rph,rpwc->hwc", a.to(ct), t)
+    return out
+
+
+def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, h: int, w: int,
+                       pooled: int = 14, spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """The gradient of RoIAlign in the features: grad [B, R, P, P, C] f32,
+    rois [B, R, 4] -> dF [B, H, W, C] f32. Kernel ``roi_align_backward`` on a
+    CUDA tensor, ``roi_align_backward_reference`` on a CPU tensor."""
+    if not grad.is_cuda:
+        return roi_align_backward_reference(grad, rois, h, w, pooled, spatial_scale)
+    if grad.dtype != torch.float32:
+        raise TypeError(f"the RoIAlign backward kernel takes float32, not {grad.dtype}")
+    grad = grad.contiguous()
+    b, r, p, p2, c = grad.shape
+    if p != pooled or p2 != pooled or rois.shape[:2] != (b, r):
+        raise ValueError(f"grad {tuple(grad.shape)} for rois {tuple(rois.shape)} and "
+                         f"pooled {pooled}")
+    if grad.data_ptr() % VECTOR_BYTES:
+        raise ValueError(f"the RoIAlign backward kernel takes grad aligned to {VECTOR_BYTES} bytes")
+    out = torch.zeros((b, h, w, c), device=grad.device, dtype=torch.float32)
+    # the forward's limits; the output takes the features' place
+    check_kernel_args(out, rois, pooled)
+    rois = rois.float().contiguous()
+    fn = getattr(_build.load(_BACKWARD), f"odt_{_BACKWARD}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    status = fn(grad.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c, pooled,
+                float(spatial_scale), torch.cuda.current_stream(grad.device).cuda_stream)
+    _build.check(status, f"odt_{_BACKWARD}")
+    _build.LAUNCHES[_BACKWARD] += 1
+    return out
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """RoIAlign differentiable in the features (not in the boxes)."""
+
+    @staticmethod
+    def forward(ctx, features, rois, pooled, spatial_scale):
+        ctx.save_for_backward(rois)
+        ctx.meta = (features.shape[1], features.shape[2], pooled, spatial_scale, features.dtype)
+        return _forward(features, rois, pooled, spatial_scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        h, w, pooled, spatial_scale, dtype = ctx.meta
+        dfeat = roi_align_backward(grad, rois.detach(), h, w, pooled, spatial_scale)
+        return dfeat.to(dtype), None, None, None
+
+
+def roi_align_batched(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,
+                      spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """Batched RoIAlign: [B, H, W, C] x [B, R, 4] -> [B, R, P, P, C];
+    differentiable in ``features`` when autograd records."""
+    if features.requires_grad and torch.is_grad_enabled():
+        return RoIAlignFunction.apply(features, rois, pooled, spatial_scale)
+    return _forward(features, rois, pooled, spatial_scale)
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor, pooled: int = 14,

@@ -15,6 +15,13 @@ slots: the 147 (ky, kx, ci) taps and 13 of zero weight, in the order that
 gives the [160, 64] weights in that order, ``k_slots`` each slot's tap, and
 ``pack_stem_weights`` the matrix in the order in which the kernel's
 ``mma.sync`` B fragments read it.
+
+``stem_fused`` is differentiable in ``w``, ``scale`` and ``bias`` when
+autograd records (``StemFunction``; the images get no gradient): the forward
+is the same call, the backward ``stem_backward``, which recomputes the
+pre-pool map with a plain conv and differentiates the frozen-BN affine, the
+ReLU and the max-pool. The JAX package differentiates its XLA stem and has no
+backward kernel, so neither has the port.
 """
 
 from __future__ import annotations
@@ -111,11 +118,13 @@ def pooled_size(h: int, w: int):
 
 def stem_reference(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
-    """Plain version. x [B, H, W, 3]; w [64, 3, 7, 7] (OIHW) -> [B, H4, W4, 64]."""
-    xf = x.float().permute(0, 3, 1, 2)
-    wf = w.to(x.dtype).float()
+    """Plain version. x [B, H, W, 3]; w [64, 3, 7, 7] (OIHW) -> [B, H4, W4, 64]
+    (float64 inputs are computed in float64)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).permute(0, 3, 1, 2)
+    wf = w.to(x.dtype).to(ct)
     y = F.conv2d(xf, wf, stride=2, padding=3)
-    y = torch.relu(y * scale.float()[:, None, None] + bias.float()[:, None, None])
+    y = torch.relu(y * scale.to(ct)[:, None, None] + bias.to(ct)[:, None, None])
     y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
@@ -151,9 +160,57 @@ def _stem_cuda(x, w, scale, bias):
     return out
 
 
-def stem_fused(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
-    """Fused stem -> [B, H4, W4, 64] NHWC in x's dtype."""
+def _forward(x, w, scale, bias):
     if x.is_cuda:
         return _stem_cuda(x, w, scale, bias)
     return stem_reference(x, w, scale, bias)
+
+
+def stem_backward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  grad: torch.Tensor):
+    """Gradients of the stem in (w, scale, bias) for the output gradient
+    ``grad`` [B, H4, W4, 64], from torch ops on x's device: the pre-pool map
+    ``y = conv(x, w)`` is recomputed in fp32 (float64 for float64 inputs;
+    from inputs and weights rounded to x's dtype, as the forward takes
+    them), and ``z = y * scale + bias``, ``relu(z)`` and the 3x3/2 max-pool
+    are differentiated by hand. The pool's gradient goes to the first
+    maximum of each window (torch's pool index); two windows that share
+    their maximum both add to it. ReLU's gradient is 0 at z = 0, as
+    ``jax.nn.relu``'s is."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).permute(0, 3, 1, 2)
+    wf = w.to(x.dtype).to(ct)
+    y = F.conv2d(xf, wf, stride=2, padding=3)
+    s, b = scale.to(ct)[:, None, None], bias.to(ct)[:, None, None]
+    z = y * s + b
+    _, idx = F.max_pool2d(torch.relu(z), kernel_size=3, stride=2, padding=1, return_indices=True)
+    g = grad.to(ct).permute(0, 3, 1, 2)
+    dr = torch.zeros_like(z).flatten(2).scatter_add_(2, idx.flatten(2), g.flatten(2))
+    dz = dr.view_as(z) * (z > 0)
+    dw = torch.nn.grad.conv2d_weight(xf, wf.shape, dz * s, stride=2, padding=3)
+    return (dw.to(w.dtype), (dz * y).sum(dim=(0, 2, 3)).to(scale.dtype),
+            dz.sum(dim=(0, 2, 3)).to(bias.dtype))
+
+
+class StemFunction(torch.autograd.Function):
+    """The fused stem, differentiable in its weights, scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        ctx.save_for_backward(x, w, scale, bias)
+        return _forward(x, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w, scale, bias = ctx.saved_tensors
+        return (None, *stem_backward(x, w, scale, bias, grad))
+
+
+def stem_fused(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """Fused stem -> [B, H4, W4, 64] NHWC in x's dtype; differentiable in
+    ``w``, ``scale`` and ``bias`` when autograd records."""
+    if torch.is_grad_enabled() and (w.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return StemFunction.apply(x, w, scale, bias)
+    return _forward(x, w, scale, bias)

@@ -1,18 +1,22 @@
 """Timing, logging and tracing (counterpart of ``utils/telemetry.py``).
 
 The reference's observability is wall-clock ``Timer``s
-(``engine/inference.py:379-400``), ``setup_logger`` with an environment dump,
-and ``result.txt`` as the canonical artifact. This module gives the port the
-same surface, with ``torch.profiler`` traces in place of ``jax.profiler``.
+(``engine/inference.py:379-400``), a ``MetricLogger`` with ETA and peak
+device memory (``engine/trainer.py:66,116-133``), ``setup_logger`` with an
+environment dump, and ``result.txt`` as the canonical artifact. This module
+gives the port the same surface, with ``torch.profiler`` traces in place of
+``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import logging
 import os
 import sys
 import time
+from collections import defaultdict, deque
 from typing import Optional
 
 
@@ -47,6 +51,73 @@ class Timer:
             yield
         finally:
             self.toc()
+
+
+class SmoothedValue:
+    """Windowed median and average (maskrcnn-benchmark's metric smoothing)."""
+
+    def __init__(self, window_size: int = 20):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+
+    def update(self, value: float):
+        self.deque.append(value)
+        self.count += 1
+        self.total += value
+
+    @property
+    def median(self) -> float:
+        d = sorted(self.deque)
+        return d[len(d) // 2] if d else 0.0
+
+    @property
+    def avg(self) -> float:
+        return sum(self.deque) / max(len(self.deque), 1)
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+
+class MetricLogger:
+    """Training-loop metrics with ETA and peak device memory
+    (``engine/trainer.py:116-133`` contract)."""
+
+    def __init__(self, delimiter: str = "  "):
+        self.meters = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def __str__(self):
+        return self.delimiter.join(f"{name}: {m.median:.4f} ({m.global_avg:.4f})"
+                                   for name, m in self.meters.items())
+
+    def log_line(self, iteration: int, max_iter: int) -> str:
+        eta_sec = self.meters["time"].global_avg * (max_iter - iteration)
+        eta = str(datetime.timedelta(seconds=int(eta_sec)))
+        mem = device_memory_mb()
+        mem_str = f"  max mem: {mem:.0f}MB" if mem else ""
+        return f"eta: {eta}  iter: {iteration}  {self}{mem_str}"
+
+
+def device_memory_mb() -> Optional[float]:
+    """Peak memory allocated on the card since the last
+    ``torch.cuda.reset_peak_memory_stats`` (``torch.cuda.max_memory_allocated``),
+    in MB; None on a host without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    return torch.cuda.max_memory_allocated() / 1e6
 
 
 def setup_logger(name: str, save_dir: Optional[str] = None,

@@ -9,7 +9,7 @@ on the CPU, on one ``make_synthetic_icwt`` tree:
 - the port's ``weights_smoke``: ``--selftest`` passes, and ``--weights``
   prints the JAX script's stage names with checksums within rtol 1e-4;
 - ``FeatureExtractor.testFeatureExtractor`` gives the JAX facade's results
-  dict; ``trainFeatureExtractor`` raises.
+  dict; ``trainFeatureExtractor`` trains a copy of its params.
 
 The network is ``r50_narrow_tree`` (3/4/6/3 blocks, narrow widths) with a
 box predictor over the dataset's 20 classes whose biases favour the two
@@ -186,6 +186,13 @@ def test_feature_extractor_test_method_matches_jax(synth, monkeypatch):
     assert_same_results(runs["port"][0], runs["jax"][0])
     assert "segm_map_0.5" in runs["port"][0]
     assert_same_predictions(runs["port"][1], runs["jax"][1], masks=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fe_port = FeatureExtractor(params=params_from_jax(synth["tree"]), device="cpu")
-        fe_port.trainFeatureExtractor()
+    # trainFeatureExtractor SGD-trains a copy of the facade's params
+    start = params_from_jax(synth["tree"])
+    fe_port = FeatureExtractor(dataset=ICubWorldDataset(synth["root"], "Main", "train"),
+                               params=start, device="cpu", **kw)
+    trained = fe_port.trainFeatureExtractor(sgd=dict(max_iter=1, warmup_iters=0, base_lr=0.005,
+                                                     post_nms_train=30, roi_batch=32))
+    assert trained is fe_port.params and trained is not start
+    assert not torch.equal(trained.box_predictor.cls_w, start.box_predictor.cls_w)
+    np.testing.assert_array_equal(start.box_predictor.cls_w.numpy(),
+                                  synth["tree"]["box_predictor"]["cls_w"])

@@ -67,6 +67,11 @@ _STAGE_MODULES = {
     "online_detection_tpu_torch.modules": "yaml",
     "online_detection_tpu_torch.modules.abstract": None,
     "online_detection_tpu_torch.modules.feature_extractor": "PIL",
+    "online_detection_tpu_torch.engine.losses": None,
+    "online_detection_tpu_torch.engine.trainer": "PIL",
+    "online_detection_tpu_torch.engine.backbone_cache": "PIL",
+    "online_detection_tpu_torch.experiments.run_experiment_full_train": "yaml",
+    "online_detection_tpu_torch.experiments.run_experiment_fine_tuning": "yaml",
 }
 
 
@@ -157,7 +162,11 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
     """The launch counters stay at zero on CPU tensors: the plain versions ran."""
     from online_detection_tpu_torch.ops import _build
     from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped, split_tf32
-    from online_detection_tpu_torch.ops.roi_align import roi_align_batched, roi_align_fused2
+    from online_detection_tpu_torch.ops.roi_align import (
+        roi_align_backward,
+        roi_align_batched,
+        roi_align_fused2,
+    )
     from online_detection_tpu_torch.ops.stem_pool import stem_fused
 
     _build.reset_launches()
@@ -167,8 +176,10 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu_tensors():
                torch.zeros(64))
     roi_align_batched(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
     roi_align_fused2(torch.ones(1, 4, 4, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]))
+    roi_align_backward(torch.ones(1, 1, 14, 14, 2), torch.tensor([[[0.0, 0.0, 30.0, 30.0]]]),
+                       4, 4)
     assert _build.LAUNCHES == {"gaussian_mmv": 0, "tf32_split": 0, "stem_pool": 0,
-                               "roi_align": 0, "roi_align_fused2": 0}
+                               "roi_align": 0, "roi_align_fused2": 0, "roi_align_backward": 0}
 
 
 def test_training_entry_points_without_device_raise_before_running(monkeypatch):
@@ -261,6 +272,37 @@ def test_checkpoint_entry_points_without_device_raise_before_running(monkeypatch
         lambda: weights_smoke.main(["--weights", str(tmp_path / "m.pkl")]),
         lambda: weights_smoke.main(["--selftest"]),
         lambda: FeatureExtractor(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert touched == [] and not out.exists()
+
+
+def test_sgd_entry_points_without_device_raise_before_running(monkeypatch, tmp_path):
+    """With no ``device`` (or ``--CPU``) the SGD trainer, the backbone dump, the
+    facade's training and both SGD CLIs target the card; on a host with no
+    card they raise before any work."""
+    from online_detection_tpu_torch.engine.backbone_cache import dump_backbone_features
+    from online_detection_tpu_torch.engine.trainer import SGDConfig, do_train
+    from online_detection_tpu_torch.experiments import _common
+    from online_detection_tpu_torch.experiments import run_experiment_fine_tuning as ft
+    from online_detection_tpu_torch.experiments import run_experiment_full_train as full
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    touched = []
+    monkeypatch.setattr(_common, "resolve_config", lambda *a: touched.append(a))
+
+    class Untouchable:
+        def __len__(self):
+            raise AssertionError("the dataset was read")
+
+    out = tmp_path / "out"
+    calls = [
+        lambda: do_train(None, Untouchable(), (64, 64), SGDConfig()),
+        lambda: dump_backbone_features(None, Untouchable(), str(out), (64, 64)),
+        lambda: full.main(["--output_dir", str(out)]),
+        lambda: ft.main(["--output_dir", str(out), "--use_backbone_features"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
