@@ -92,7 +92,25 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    the two SGD CLIs (``--max_iter 3``; ``--use_backbone_features
    --max_iter 2``) on a PIL-written tree and the tester CLI over the
    fine-tuned ``model_final.pkl``.
-11. Prints one ``{"kernels": [...]}`` line (launches counted over every
+11. The module facades, the demo and the teacher, the four remaining CLIs,
+   MFU and the f32 trunk: MFU of a ``detect_batched`` batch and of a device
+   harvest batch at the bf16 peak (``utils/flops.py``; host clock and traced
+   device time); ``OnlineSegmentationDemo.run_on_image`` on 8 held-out
+   images (boxes, scores and labels equal to ``detect_batched``'s on the same
+   canvas; B1 +3, B2 +1, B3 +2 an image; ``overlay`` on each) and an
+   ``IncrementalTeacher`` taught 2 classes, then a third, 4 observations of
+   each with masks (every class exists after each ``update_model``; B2 and
+   B4 +1 an observation); the device route's training and ``run_inference``
+   again with ``ODTPU_COMPUTE_DTYPE=float32`` (launch counts equal to the
+   bf16 run's; mAPs and ms a batch beside bf16's); the facades on the host
+   route's detector pools (``trainRegionClassifier`` held against the
+   solver on the same buffers and draws, ``FALKONWrapper.predict`` against
+   ``mmv_reference``, ``RegionRefiner`` against the host route's refiners,
+   and the standalone experiment scored by ``AccuracyEvaluatorStandalone``
+   on the 32 held-out images); and the serial, O-RPN + OOD (``--no_rpn``),
+   segmentation (GT boxes: det mAP > 0.99) and visualizer CLIs on the
+   flagship CLI's tree.
+12. Prints one ``{"kernels": [...]}`` line (launches counted over every
    path), the card's name and power limit, and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -104,8 +122,9 @@ traced batches' device time by kernel and idle share to
 and log to ``chiprun_out/inference/``.
 Beside them, the host route's traced harvest goes to
 ``host_harvest_profile.txt``, each CLI run's ``result.txt`` to ``cli/`` and
-the traced ``detect_pretrained`` image to ``pretrained_profile.txt`` and the
-traced training step to ``sgd_profile.txt``.
+the traced ``detect_pretrained`` image to ``pretrained_profile.txt``, the
+traced training step to ``sgd_profile.txt``, and the visualizer's PNGs to
+``cli/viz/``.
 Scratch files (the feature caches, the CLI's tree and outputs, the
 checkpoint files) live under ``.bench/`` and are deleted.
 """
@@ -1294,6 +1313,7 @@ def host_route_phase(params, seed, card, report, out_dir):
     online = train_online_modules(gen, harvest, cfg, timings=stages)
     torch.cuda.synchronize()
     train_s = time.time() - t0
+    det_pools = harvest["det"]  # the facades' phase trains on them
     del harvest
     paths["host train"] = dict(_build.LAUNCHES)
     mining = host_mining_launches(cfg, seg_iters)
@@ -1348,7 +1368,7 @@ def host_route_phase(params, seed, card, report, out_dir):
         "peak_rss_gib_train": rss_train, "classes_trained": trained, "seg_iterations": seg_iters,
         "det_map_0.5": results["det_map_0.5"], "segm_map_0.5": results["segm_map_0.5"],
         "device_route_maps": dev_maps, "run_inference_s": infer_s, "launches": paths}
-    return paths
+    return paths, det_pools, online
 
 
 def _same_rows(got, want, what):
@@ -1515,7 +1535,9 @@ def cli_phase(card, report, out_dir):
     JPEGs and masks): the device route saving its models, the host route
     saving the feature caches, then training from those caches. Each run
     must write the CLI's result.txt lines and give finite mAPs, and the
-    launch counters of the kernels its path runs must rise."""
+    launch counters of the kernels its path runs must rise. Then the four
+    other experiment CLIs on the same tree (``experiment_clis``). Returns
+    the flagship runs' launches and theirs apart."""
     import math
 
     from online_detection_tpu_torch.data.datasets.synthetic import make_synthetic_icwt
@@ -1572,10 +1594,11 @@ def cli_phase(card, report, out_dir):
             print(f"  CLI ({name}): {run_s:.2f} s, det mAP@0.5 {maps['det_map_0.5']:.4f}, "
                   f"segm mAP@0.5 {maps['segm_map_0.5']:.4f}, launches {launches} on {card}",
                   flush=True)
+        new_paths = experiment_clis(work, card, keep, summary)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     report["cli"] = {"card": card, "tree_s": tree_s, "runs": summary}
-    return paths
+    return paths, new_paths
 
 
 # ---------------------------------------------------------------------------
@@ -2340,6 +2363,498 @@ def sgd_phase(seed, card, report, out_dir, dev):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the module facades, the demo and the incremental teacher, the f32 trunk
+
+
+def timed_call(fn):
+    """(result, seconds) of one call, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def launches_of(fn):
+    """(result, seconds, launches) of one call, the counters read right after it."""
+    from online_detection_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    out, seconds = timed_call(fn)
+    return out, seconds, dict(_build.LAUNCHES)
+
+
+def check_launches(where, got, rising, exact=None):
+    """Every kernel of ``rising`` launched, no other one did; ``exact``
+    holds the counts that must be met exactly."""
+    idle = sorted(k for k in rising if got[k] == 0)
+    stray = sorted(k for k in COUNTERS if k not in rising and got[k])
+    wrong = {k: (got[k], n) for k, n in (exact or {}).items() if got[k] != n}
+    if idle or stray or wrong:
+        fail(f"{where} launched {got}: idle {idle}, not on its path {stray}, "
+             f"(got, expected) {wrong}")
+
+
+def facade_test_boxes(params, online_rpn, test_set, dcfg, dev, gt_cap=20):
+    """The cached test_boxes of the standalone experiments for the held-out
+    images: GT ++ the on-line RPN's proposals and their res5 features from
+    the harvest trunk (B2, B4), a batch of 8 at a time, GT rows flagged; and
+    the evaluator's ground truths."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.data.transforms import preprocess_image_u8
+    from online_detection_tpu_torch.engine.harvest import harvest_trunk
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+
+    h, w = CANVAS
+    anchors = torch.from_numpy(grid_anchors(h // 16, w // 16)).to(dev)
+    test_boxes, gts = [], []
+    for lo in range(0, len(test_set), BATCH_SIZE):
+        idx = range(lo, min(lo + BATCH_SIZE, len(test_set)))
+        # 800x600 needs no resize (scale 1): padded onto the canvas only
+        loaded = [preprocess_image_u8(test_set.load_image(i), CANVAS, 600, 1333) for i in idx]
+        images = torch.from_numpy(np.stack([c for c, _, _ in loaded])).to(dev)
+        sizes = torch.tensor([swh for _, _, swh in loaded], dtype=torch.float32, device=dev)
+        gt = torch.zeros((len(idx), gt_cap, 4), device=dev)
+        gt_valid = torch.zeros((len(idx), gt_cap), dtype=torch.bool, device=dev)
+        for k, i in enumerate(idx):
+            boxes = test_set.get_annotation(i).boxes
+            gt[k, :len(boxes)] = torch.from_numpy(boxes).to(dev)
+            gt_valid[k, :len(boxes)] = True
+        _, props, pvalid, feats, _ = harvest_trunk(params, online_rpn, anchors, images, sizes,
+                                                   gt, gt_valid, dcfg, with_mask_features=False)
+        rows = torch.cat([gt, props], 1)
+        valid = torch.cat([gt_valid, pvalid], 1)
+        is_gt = torch.cat([gt_valid, torch.zeros_like(pvalid)], 1)
+        for k, i in enumerate(idx):
+            v = valid[k]
+            test_boxes.append({"boxes": rows[k][v].cpu().numpy(), "feat": feats[k][v],
+                               "gt": is_gt[k][v].cpu().numpy(), "img_size": loaded[k][2]})
+            anno = test_set.get_annotation(i)
+            gts.append({"boxes": anno.boxes, "labels": anno.labels,
+                        "difficult": anno.difficult})
+    return test_boxes, gts
+
+
+def facades_phase(params, det, host_online, seed, card, report):
+    """The module facades at full width (d 2048, M 1000, 21 classes) on the
+    host route's detector pools (its COXY rows as each class's positives,
+    its negative batches as the reference's list-of-batches layout) and
+    feature statistics: ``OnlineRegionClassifier.trainRegionClassifier``
+    held against ``train_classifiers_minibootstrap`` on the same buffers and
+    draws; ``FALKONWrapper.train`` on class 1's cache and ``predict`` held
+    against ``mmv_reference``; ``RegionRefiner`` on the COXY rows, held
+    against the host route's detector refiners (the same ridge on the same
+    rows); then the standalone experiment on the held-out images (test
+    boxes from the harvest trunk with the host route's on-line RPN: the
+    random trunk's own RPN proposes nothing near the objects;
+    ``testRegionClassifier``, ``RegionRefiner.predict``,
+    ``AccuracyEvaluatorStandalone``)."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.modules.facades import (
+        AccuracyEvaluatorStandalone, FALKONWrapper, OnlineRegionClassifier, RegionRefiner)
+    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_reference
+    from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
+    from online_detection_tpu_torch.solvers.falkon import falkon_predict_classes
+    from online_detection_tpu_torch.solvers.minibootstrap import (
+        MinibootstrapParams, train_classifiers_minibootstrap)
+    from online_detection_tpu_torch.solvers.rls import rls_predict
+    from online_detection_tpu_torch.utils.device import ieee_fp32
+
+    cfg, dev = OnlineTrainConfig(), torch.device("cuda")
+    coxy = det["coxy"]
+    c_lab = np.asarray(coxy["C"]).reshape(-1).astype(int)
+    positives = [coxy["X"][c_lab == c + 1] for c in range(N_CLASSES)]
+    negatives = [[det["neg"][c, i][det["neg_valid"][c, i]] for i in range(det["neg"].shape[1])]
+                 for c in range(N_CLASSES)]
+    wrapper = FALKONWrapper()
+    wrapper.sigma, wrapper.lam, wrapper.nyst_centers = cfg.det_sigma, cfg.det_lam, cfg.det_m
+    oc = OnlineRegionClassifier(wrapper, positives, negatives, host_online.detector.stats)
+    rec, paths = {"card": card}, {}
+
+    models, train_s, paths["facade minibootstrap"] = launches_of(oc.trainRegionClassifier)
+    check_launches("trainRegionClassifier", paths["facade minibootstrap"],
+                   {"gaussian_mmv", "tf32_split"}, {"gaussian_mmv": cfg.iterations})
+    with torch.inference_mode(), ieee_fp32():
+        pos, pv, neg, nv = (torch.from_numpy(a).to(dev) for a in oc._to_buffers())
+        ref = train_classifiers_minibootstrap(
+            oc.zScores(pos) * pv[..., None], pv, oc.zScores(neg) * nv[..., None], nv,
+            MinibootstrapParams(m=cfg.det_m, sigma=cfg.det_sigma, lam=cfg.det_lam,
+                                hard_thresh=oc.hard_tresh, easy_thresh=oc.easy_tresh),
+            generator=torch.Generator().manual_seed(0))
+        del pos, pv, neg, nv
+        probe = oc.zScores(np.concatenate([p[:64] for p in positives]
+                                          + [negatives[0][0][:256]]))
+        got = falkon_predict_classes(models, probe)
+        want = falkon_predict_classes(ref, probe)
+    if not torch.equal(models.exists, ref.exists) or not bool(models.exists.all()):
+        fail(f"trainRegionClassifier: exists {models.exists.tolist()} against the solver's "
+             f"{ref.exists.tolist()}")
+    check_close("facade scores", got, want, 1e-5 * want.abs().max(), report)
+    rec["classifier"] = {"train_s": train_s, "launches": paths["facade minibootstrap"],
+                         "max_abs_err_vs_solver": report["facade scores"]["max_abs_err"]}
+    print(f"  OnlineRegionClassifier.trainRegionClassifier, {N_CLASSES} classes, "
+          f"{det['neg'].shape[1]} x {det['neg'].shape[2]} negatives a class, d 2048, M "
+          f"{cfg.det_m}: {train_s:.3f} s; scores against train_classifiers_minibootstrap on the "
+          f"same buffers: max err {report['facade scores']['max_abs_err']:.2e}; launches "
+          f"{paths['facade minibootstrap']} on {card}", flush=True)
+
+    # FALKONWrapper on class 1's cache: its positives and negatives, z-scored
+    with torch.inference_mode():
+        x = oc.zScores(np.concatenate([positives[0]] + negatives[0]))
+    y = torch.cat([torch.ones(len(positives[0])), -torch.ones(len(x) - len(positives[0]))])
+    fmodel, fit_s, paths["facade falkon train"] = launches_of(lambda: wrapper.train(x, y))
+    check_launches("FALKONWrapper.train", paths["facade falkon train"], set())
+    scores, predict_s, paths["facade falkon predict"] = launches_of(
+        lambda: wrapper.predict(fmodel, x))
+    check_launches("FALKONWrapper.predict", paths["facade falkon predict"],
+                   {"gaussian_mmv", "tf32_split"}, {"gaussian_mmv": 1})
+    with torch.inference_mode(), ieee_fp32():
+        c, a = fmodel.centers[None], fmodel.alpha[None]
+        ref = mmv_reference(x, c, a, fmodel.sigma)[0]
+        terms = mmv_reference(x, c, a.abs(), fmodel.sigma)[0]
+    check_close("gaussian_mmv", scores, ref, 1e-5 * terms + 1e-30, report)
+    acc = float(((scores > 0) == (y.to(dev) > 0)).float().mean())
+    rec["falkon_wrapper"] = {"rows": len(x), "train_s": fit_s, "predict_ms": predict_s * 1e3,
+                             "train_accuracy": acc,
+                             "max_abs_err_vs_plain": float((scores - ref).abs().max())}
+    print(f"  FALKONWrapper on class 1's cache ({len(x)} rows, M {cfg.det_m}): train "
+          f"{fit_s:.3f} s, predict {predict_s * 1e3:.2f} ms (one B1 launch, against "
+          f"mmv_reference: max err {rec['falkon_wrapper']['max_abs_err_vs_plain']:.2e}); "
+          f"training accuracy {acc:.4f} on {card}", flush=True)
+    if acc < 0.9:
+        fail(f"FALKONWrapper separates its own training rows at {acc:.4f}")
+
+    # RegionRefiner: the detector's ridge on the COXY rows
+    refiner = RegionRefiner()
+    refiner.lam, refiner.num_classes = cfg.det_reg_lam, N_CLASSES
+    regs, reg_s = timed_call(lambda: refiner.trainRegionRefiner(coxy))
+    with torch.inference_mode():
+        xr = torch.from_numpy(coxy["X"][:512]).to(dev)
+        got, want = rls_predict(regs, xr), rls_predict(host_online.detector.rls, xr)
+    if not torch.equal(regs.exists, host_online.detector.rls.exists):
+        fail("RegionRefiner: its classes differ from the host route's refiners'")
+    check_close("facade refiner", got, want, 1e-4 * want.abs().max() + 1e-6, report)
+    rec["refiner"] = {"train_s": reg_s, "max_abs_err_vs_host_route":
+                      report["facade refiner"]["max_abs_err"]}
+
+    # the standalone experiment on the held-out images
+    test_set = teaching_set(HELD_OUT_IMAGES, seed + 1)
+    with torch.inference_mode(), ieee_fp32():
+        (test_boxes, gts), boxes_s, paths["facade test boxes"] = launches_of(
+            lambda: facade_test_boxes(params, host_online.rpn, test_set, DetectorConfig(), dev))
+    n_b = -(-HELD_OUT_IMAGES // BATCH_SIZE)
+    check_launches("the test boxes' harvest trunk", paths["facade test boxes"],
+                   {"gaussian_mmv", "tf32_split", "stem_pool", "roi_align_fused2"},
+                   {"gaussian_mmv": n_b, "stem_pool": n_b, "roi_align_fused2": n_b})
+    preds, test_s, paths["facade test"] = launches_of(
+        lambda: oc.testRegionClassifier(models, test_boxes))
+    check_launches("testRegionClassifier", paths["facade test"], {"gaussian_mmv", "tf32_split"},
+                   {"gaussian_mmv": HELD_OUT_IMAGES})
+    t0 = time.time()
+    for p, tb in zip(preds, test_boxes):
+        keep = ~tb["gt"].astype(bool)
+        refined = refiner.predict(p["boxes"], tb["feat"][torch.from_numpy(keep).cuda()],
+                                  p["img_size"])
+        p["boxes"] = np.concatenate([p["boxes"], refined], axis=1)
+    refine_s = time.time() - t0
+    evaluator = AccuracyEvaluatorStandalone()
+    results, eval_s = timed_call(
+        lambda: evaluator.evaluate(gts, preds, class_names=list(test_set.classes)))
+    v = results["det_map_0.5"]
+    if not (np.isfinite(v) and 0.0 < v <= 1.0):
+        fail(f"AccuracyEvaluatorStandalone: det mAP@0.5 {v}")
+    rec["standalone"] = {"images": HELD_OUT_IMAGES, "test_boxes_s": boxes_s,
+                         "test_region_classifier_s": test_s, "refine_s": refine_s,
+                         "evaluate_s": eval_s, "det_map_0.5": v,
+                         "rows": int(sum(len(p["scores"]) for p in preds))}
+    print(f"  RegionRefiner on {len(coxy['X'])} COXY rows: {reg_s:.3f} s, against the host "
+          f"route's refiners: max err {rec['refiner']['max_abs_err_vs_host_route']:.2e}; "
+          f"standalone experiment on {HELD_OUT_IMAGES} held-out images: test boxes "
+          f"{boxes_s:.3f} s, testRegionClassifier {test_s:.3f} s, RegionRefiner.predict "
+          f"{refine_s:.3f} s, AccuracyEvaluatorStandalone.evaluate {eval_s:.3f} s, det "
+          f"mAP@0.5 {v:.4f} on {card}", flush=True)
+    rec["launches"] = paths
+    report["facades"] = rec
+    return paths
+
+
+def demo_phase(params, trained, seed, card, report):
+    """``OnlineSegmentationDemo.run_on_image`` with the device route's models
+    on 8 held-out images, one at a time: boxes, scores and labels equal to
+    ``detect_batched``'s on the same canvas, B1/B2/B3 launched as a batch of
+    one, ``overlay`` on each. Then an ``IncrementalTeacher`` at full width
+    taught two classes, then a third with ``add_new_class``, four
+    observations of each with masks, ``update_model`` after each round:
+    every taught class exists, and each observation is harvested once (B2
+    and B4 +1) an update."""
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.data.transforms import preprocess_image_u8
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_batched
+    from online_detection_tpu_torch.modules.demo import IncrementalTeacher, OnlineSegmentationDemo
+
+    dcfg = DetectorConfig()
+    test_set = teaching_set(BATCH_SIZE, seed + 1)
+    demo = OnlineSegmentationDemo(params, trained, test_set.classes, CANVAS, dcfg)
+    h, w = CANVAS
+    anchors = torch.from_numpy(grid_anchors(h // 16, w // 16)).cuda()
+    paths, ms, detect_ms, kept = {}, [], [], []
+    per_image = dict(EXPECTED_LAUNCHES)
+    for i in range(len(test_set)):
+        rgb = test_set.load_image(i)
+        result, sec, launches = launches_of(lambda: demo.run_on_image(rgb))
+        check_launches("run_on_image", launches, {k for k, n in per_image.items() if n},
+                       per_image)
+        for k, n in launches.items():
+            paths.setdefault("demo run_on_image", dict.fromkeys(COUNTERS, 0))[k] += n
+        ms.append(sec * 1e3)
+        canvas, scale, (sw, sh) = preprocess_image_u8(rgb, CANVAS, 600, 1333)
+        (dets, _, _, _), detect_s = timed_call(
+            lambda: detect_batched(params, trained, anchors, canvas[None], [[sw, sh]], dcfg,
+                                   True))
+        detect_ms.append(detect_s * 1e3)
+        keep = (dets.valid[0] & (dets.scores[0] >= demo.confidence_threshold)).cpu().numpy()
+        for name, want in (("boxes", dets.boxes[0].cpu().numpy()[keep] / scale),
+                           ("scores", dets.scores[0].cpu().numpy()[keep]),
+                           ("labels", dets.labels[0].cpu().numpy()[keep])):
+            if not np.array_equal(result[name], want):
+                fail(f"run_on_image {i}: its {name} differ from detect_batched's")
+        if result["masks"].shape != (len(result["boxes"]),) + rgb.shape[:2]:
+            fail(f"run_on_image {i}: masks {result['masks'].shape}")
+        overlay = demo.overlay(rgb, result)
+        if overlay.shape != rgb.shape or overlay.dtype != np.uint8:
+            fail(f"overlay {i}: {overlay.shape} {overlay.dtype}")
+        kept.append(len(result["boxes"]))
+    rec = {"card": card, "run_on_image_ms": ms, "detect_batched_ms": detect_ms, "kept": kept}
+    print(f"  OnlineSegmentationDemo.run_on_image on {len(test_set)} held-out images of "
+          f"{TRAIN_HW[1]}x{TRAIN_HW[0]}: ms an image {[round(t, 2) for t in ms]} (median "
+          f"{float(np.median(ms)):.2f}; detect_batched alone on the same canvas, median "
+          f"{float(np.median(detect_ms)):.2f}), detections kept {kept}, equal to "
+          f"detect_batched's; launches {paths['demo run_on_image']} on {card}", flush=True)
+
+    # the teacher: 4 observations of each of 3 classes, the third added later
+    ts = SyntheticTeachingSet(12, TRAIN_HW, 3, seed + 2, *OBJECT_SIDES)
+    teacher = IncrementalTeacher(params, canvas_hw=CANVAS)
+    rounds = []
+    for names in (["object_1", "object_2"], ["object_3"]):
+        for name in names:
+            label = teacher.add_new_class(name)
+            for i in range(label - 1, len(ts), 3):  # image i shows class i % 3 + 1
+                anno = ts.get_annotation(i)
+                teacher.observe(ts.load_image(i), anno.boxes[0], label, ts.load_masks(i)[0])
+        n_obs = len(teacher._observations)
+        online, sec, launches = launches_of(teacher.update_model)
+        check_launches("update_model", launches,
+                       {"gaussian_mmv", "tf32_split", "stem_pool", "roi_align_fused2"},
+                       {"stem_pool": n_obs, "roi_align_fused2": n_obs})
+        paths[f"teacher update {len(rounds) + 1}"] = launches
+        exists = {h: getattr(online, h).falkon.exists.tolist() for h in ("detector", "mask")}
+        if any(len(e) != teacher.num_classes or not all(e) for e in exists.values()):
+            fail(f"update_model with {teacher.num_classes} classes: exists {exists}")
+        rounds.append({"classes": teacher.num_classes, "observations": n_obs, "seconds": sec,
+                       "launches": launches, "rpn_classes": int(online.rpn.falkon.exists.sum())})
+        print(f"  IncrementalTeacher.update_model, {teacher.num_classes} classes, {n_obs} "
+              f"observations with masks: {sec:.3f} s; detector and mask exist for every class; "
+              f"launches {launches} on {card}", flush=True)
+    rec["teacher"] = rounds
+    rec["launches"] = paths
+    report["demo"] = rec
+    return paths
+
+
+def mfu_lines(times, detect_profile, card, report):
+    """Model FLOPs utilisation of a ``detect_batched`` batch and of a device
+    harvest batch at the bf16 peak, from ``utils/flops.py`` and this run's
+    times: the host clock around a synchronised batch, and the device's
+    busy time in the traced batch."""
+    import numpy as np
+
+    from online_detection_tpu_torch.models.detector import DetectorConfig
+    from online_detection_tpu_torch.utils import flops
+
+    dcfg = DetectorConfig()
+    h, w = CANVAS
+    per_batch = {
+        "detect_batched": BATCH_SIZE * flops.inference_image_flops(
+            h, w, dcfg.post_nms_top_n, dcfg.detections_per_img, N_CLASSES, N_ANCHORS),
+        "harvest": BATCH_SIZE * flops.harvest_image_flops(h, w, dcfg.post_nms_top_n, 20,
+                                                          N_ANCHORS)}
+    n_batches = -(-TRAIN_IMAGES // BATCH_SIZE)
+    wall_ms = {"detect_batched": float(np.median(times)),
+               "harvest": report["training"]["harvest_s"] / n_batches * 1e3}
+    busy_ms = {"detect_batched": detect_profile["busy_ms"],
+               "harvest": report["training"]["harvest_profile"]["busy_ms"]}
+    rec = {"card": card, "peak_tflops": flops.H100_PEAK_BF16_TFLOPS}
+    for k, f in per_batch.items():
+        rec[k] = {"gflop_per_batch": f / 1e9, "wall_ms": wall_ms[k], "busy_ms": busy_ms[k],
+                  "mfu_wall": flops.mfu(f / (wall_ms[k] / 1e3)),
+                  "mfu_busy": flops.mfu(f / (busy_ms[k] / 1e3))}
+        print(f"MFU of a {k} batch of {BATCH_SIZE} at {w}x{h}: {f / 1e12:.3f} TFLOP, "
+              f"{wall_ms[k]:.2f} ms wall -> {rec[k]['mfu_wall']:.2%}; {busy_ms[k]:.2f} ms "
+              f"device busy (traced batch) -> {rec[k]['mfu_busy']:.2%} of "
+              f"{flops.H100_PEAK_BF16_TFLOPS:.0f} TFLOP/s bf16 on {card}", flush=True)
+    report["mfu"] = rec
+
+
+def f32_trunk_phase(params, trained, seed, card, report):
+    """The device route's training and ``run_inference`` once more with
+    ``ODTPU_COMPUTE_DTYPE=float32`` (the trunk in f32: B2's fp32 route), on
+    the same seed and images, the variable restored after; its launch counts
+    equal the bf16 run's. Then one held-out batch of 8 through
+    ``detect_batched`` with each trunk and its own models, timed."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from online_detection_tpu_torch.models.anchors import grid_anchors
+    from online_detection_tpu_torch.models.detector import DetectorConfig, detect_batched
+    from online_detection_tpu_torch.pipelines.device_pipeline import (
+        harvest_dataset_device, train_online_modules_device)
+    from online_detection_tpu_torch.pipelines.online_pipeline import (
+        OnlineTrainConfig, run_inference)
+
+    cfg, dcfg = OnlineTrainConfig(), DetectorConfig()
+    h, w = CANVAS
+    anchors = torch.from_numpy(grid_anchors(h // 16, w // 16)).cuda()
+    test_set = teaching_set(HELD_OUT_IMAGES, seed + 1)
+    batch = torch.from_numpy(np.stack([test_set.load_image(i)
+                                       for i in range(BATCH_SIZE)])).cuda()
+    sizes = torch.tensor([[w, h]] * BATCH_SIZE, dtype=torch.float32, device="cuda")
+
+    def batch_ms(online):
+        return [timed(lambda: detect_batched(params, online, anchors, batch, sizes, dcfg, True),
+                      1) for _ in range(5)]
+
+    def mask_summary(online):
+        """Mean mask probability and share of pixels over 0.5 in the valid
+        detections of the batch."""
+        dets, masks, _, _ = detect_batched(params, online, anchors, batch, sizes, dcfg, True)
+        m = masks[dets.valid]
+        return {"mean": float(m.mean()), "over_half": float((m > 0.5).float().mean()),
+                "detections": int(dets.valid.sum())}
+
+    bf16_ms = batch_ms(trained)
+    bf16_masks = mask_summary(trained)
+    saved = os.environ.get("ODTPU_COMPUTE_DTYPE")
+    os.environ["ODTPU_COMPUTE_DTYPE"] = "float32"
+    paths = {}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        (state, _), harvest_s, paths["f32 harvest"] = launches_of(
+            lambda: harvest_dataset_device(gen, params, teaching_set(TRAIN_IMAGES, seed), cfg,
+                                           CANVAS, dcfg=dcfg, batch_size=BATCH_SIZE))
+        online, train_s, paths["f32 train"] = launches_of(
+            lambda: train_online_modules_device(gen, [state], cfg))
+        del state
+        (results, _), infer_s, paths["f32 run_inference"] = launches_of(
+            lambda: run_inference(params, online, test_set, CANVAS, dcfg,
+                                  batch_size=BATCH_SIZE))
+        f32_ms = batch_ms(online)
+        f32_masks = mask_summary(online)
+    finally:
+        if saved is None:
+            del os.environ["ODTPU_COMPUTE_DTYPE"]
+        else:
+            os.environ["ODTPU_COMPUTE_DTYPE"] = saved
+    bf16_paths = dict(report["training"]["launches"], **{"run_inference":
+                                                         report["inference"]["launches"]})
+    for k, ref in (("harvest", "harvest"), ("train", "train"),
+                   ("run_inference", "run_inference")):
+        if paths[f"f32 {k}"] != bf16_paths[ref]:
+            fail(f"f32 trunk {k} launched {paths[f'f32 {k}']}, the bf16 run "
+                 f"{bf16_paths[ref]}")
+    check_scores(results, "run_inference with the f32 trunk")
+    bf16 = {k: report["inference"][k] for k in ("det_map_0.5", "segm_map_0.5")}
+    f32 = {k: results[k] for k in ("det_map_0.5", "segm_map_0.5")}
+    report["f32_trunk"] = {
+        "card": card, "maps_f32": f32, "maps_bf16": bf16,
+        "ap_f32": {k: [float(a) for a in results[k]] for k in ("det_ap_0.5", "segm_ap_0.5")},
+        "ap_bf16": report["inference"]["per_class_ap"], "harvest_s": harvest_s,
+        "train_s": train_s, "run_inference_s": infer_s, "batch_ms_f32": f32_ms,
+        "batch_ms_bf16": bf16_ms, "masks_f32": f32_masks, "masks_bf16": bf16_masks,
+        "launches": paths}
+    print(f"f32 trunk (ODTPU_COMPUTE_DTYPE=float32), device route on the same images: det / "
+          f"segm mAP@0.5 {f32['det_map_0.5']:.4f} / {f32['segm_map_0.5']:.4f} (bf16 trunk "
+          f"{bf16['det_map_0.5']:.4f} / {bf16['segm_map_0.5']:.4f}); harvest {harvest_s:.3f} s, "
+          f"training {train_s:.3f} s, run_inference {infer_s:.3f} s; detect_batched a batch "
+          f"of {BATCH_SIZE}: f32 {float(np.median(f32_ms)):.2f} ms, bf16 "
+          f"{float(np.median(bf16_ms)):.2f} ms (median of 5) on {card}", flush=True)
+    per_class = {k: [round(a, 4) for a in v[1:]] for k, v in report["f32_trunk"]["ap_f32"].items()}
+    print(f"  per-class AP@0.5 with the f32 trunk {json.dumps(per_class)}; mask probabilities "
+          f"of a held-out batch's detections: f32 {f32_masks}, bf16 {bf16_masks}", flush=True)
+    return paths
+
+
+def experiment_clis(work, card, keep, summary):
+    """The serial, O-RPN + OOD (``--no_rpn``), segmentation (GT boxes) and
+    visualizer CLIs once each on the flagship CLI's tree; the visualizer
+    over the models the device-route run saved. Each run's kernels must
+    launch; segmentation with GT boxes must give det mAP > 0.99, and the
+    visualizer must write its PNGs (copied to ``cli/viz``)."""
+    import math
+
+    from online_detection_tpu_torch.experiments import (
+        run_experiment_online_rpn_ood, run_experiment_online_rpn_ood_oos_serial,
+        run_experiment_segmentation, visualize_masks_online_segmentation)
+
+    feat, online = str(work / "feat.yaml"), str(work / "online.yaml")
+    runs = (
+        ("serial", run_experiment_online_rpn_ood_oos_serial.main,
+         ["--config_file_feature_extraction", feat, "--config_file_rpn", feat,
+          "--config_file_online_rpn_detection_segmentation", online]),
+        ("O-RPN + OOD, --no_rpn", run_experiment_online_rpn_ood.main,
+         ["--config_file_feature_extraction", feat, "--config_file_rpn_detection", online,
+          "--no_rpn"]),
+        ("segmentation, GT boxes", run_experiment_segmentation.main,
+         ["--config_file_feature_extraction", feat,
+          "--config_file_online_detection_segmentation", online,
+          "--eval_segm_with_gt_bboxes"]),
+    )
+    paths = {}
+    for name, main, args in runs:
+        out = work / name.split(",")[0].replace(" ", "_").replace("+", "")
+        results, run_s, launches = launches_of(
+            lambda: main(["--output_dir", str(out)] + args))
+        check_launches(f"CLI ({name})", launches, set(ONLINE_COUNTERS))
+        paths[f"cli {name}"] = launches
+        (keep / f"{out.name}.txt").write_text((out / "result.txt").read_text())
+        maps = {k: v for k, v in results.items() if k.endswith("map_0.5")}
+        if not maps or not all(math.isfinite(v) for v in maps.values()):
+            fail(f"CLI ({name}) mAPs {maps}")
+        if name.startswith("segmentation") and maps["det_map_0.5"] <= 0.99:
+            fail(f"segmentation CLI with GT boxes: det mAP@0.5 {maps['det_map_0.5']}")
+        summary[name] = {"seconds": run_s, "launches": launches, **maps}
+        print(f"  CLI ({name}): {run_s:.2f} s, mAP@0.5 "
+              f"{ {k: round(v, 4) for k, v in maps.items()} }, launches {launches} on {card}",
+              flush=True)
+    viz = work / "viz"
+    written, run_s, launches = launches_of(lambda: visualize_masks_online_segmentation.main(
+        ["--models_dir", str(work / "device"), "--output_dir", str(viz),
+         "--config_file_feature_extraction", feat, "--num_images", "4"]))
+    check_launches("CLI (visualizer)", launches, set(ONLINE_COUNTERS) - {"roi_align_fused2"},
+                   {"stem_pool": 4, "roi_align": 8})
+    pngs = sorted(p.name for p in viz.glob("*.png"))
+    if len(pngs) != 4 or len(written) != 4:
+        fail(f"visualizer CLI wrote {pngs}")
+    shutil.copytree(viz, keep / "viz")
+    paths["cli visualizer"] = launches
+    summary["visualizer"] = {"seconds": run_s, "launches": launches, "pngs": pngs}
+    print(f"  CLI (visualizer): {run_s:.2f} s, wrote {pngs}, launches {launches} on {card}",
+          flush=True)
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2452,22 +2967,35 @@ def main(argv=None) -> int:
         from online_detection_tpu_torch.pipelines.online_pipeline import OnlineTrainConfig
 
         check_mmv_mining(trained, OnlineTrainConfig(), report, rng)
+    mfu_lines(times, profiled, card, report)
     print("inference stage:", flush=True)
     infer_launches = inference_phase(params, trained, args.seed, card, report, out_dir)
     small_inference_reference_check(params, trained, args.seed, dev, report)
+    print("the demo and the incremental teacher:", flush=True)
+    api_paths = demo_phase(params, trained, args.seed, card, report)
+    print("the trunk in f32:", flush=True)
+    api_paths.update(f32_trunk_phase(params, trained, args.seed, card, report))
     del trained
     torch.cuda.empty_cache()
     small_training_reference_check(params, dev, report)
     print("host route:", flush=True)
-    host_paths = host_route_phase(params, args.seed, card, report, out_dir)
+    host_paths, det_pools, host_online = host_route_phase(params, args.seed, card, report,
+                                                          out_dir)
+    print("the module facades:", flush=True)
+    api_paths.update(facades_phase(params, det_pools, host_online, args.seed, card,
+                                       report))
+    del det_pools, host_online
     host_paths.update(feature_cache_phase(params, args.seed, card, report))
     print("flagship CLI:", flush=True)
-    host_paths.update(cli_phase(card, report, out_dir))
+    flagship_paths, cli_paths = cli_phase(card, report, out_dir)
+    host_paths.update(flagship_paths)
+    api_paths.update(cli_paths)
     print("checkpoint files and the stock path:", flush=True)
     host_paths.update(pretrained_phase(args.seed, card, report, out_dir))
     print("the SGD baselines:", flush=True)
     host_paths.update(sgd_phase(args.seed, card, report, out_dir, dev))
-    for path in list(train_paths.values()) + [infer_launches] + list(host_paths.values()):
+    for path in (list(train_paths.values()) + [infer_launches] + list(host_paths.values())
+                 + list(api_paths.values())):
         for k, n in path.items():
             launches[k] += n
 
@@ -2510,7 +3038,11 @@ def main(argv=None) -> int:
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": report[k]["max_abs_err"], "ms": report[k]["ms"],
          "plain_ms": report[k]["plain_ms"], "bound_ms": report[k]["bound_ms"],
-         "bound_by": report[k]["bound_by"], "library_ms": None, **extra.get(k, {})}
+         "bound_by": report[k]["bound_by"], "library_ms": None,
+         # this kernel's launches on each path of the module API's phases (the
+         # demo and teacher, the f32 trunk, the facades, the other CLIs)
+         "api_launches": {p: n[k] for p, n in api_paths.items() if n[k]},
+         **extra.get(k, {})}
         for k in COUNTERS],
         "not_ported": []}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -2521,6 +3053,8 @@ def main(argv=None) -> int:
          "small_training_reference": report["small_training_reference"],
          "host_route": report["host_route"], "feature_cache": report["feature_cache"],
          "cli": report["cli"], "pretrained": report["pretrained"], "sgd": report["sgd"],
+         "facades": report["facades"], "demo": report["demo"], "mfu": report["mfu"],
+         "f32_trunk": report["f32_trunk"],
          "stem_pool_grad": report["stem_pool grad"],
          "ms_per_batch": times, "launches": launches,
          "valid_detections": n_valid, "profile": profiled, "build_logs": logs,

@@ -14,6 +14,16 @@ from pathlib import Path
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "experiments" / "configs"
 
 
+def _found_config(path):
+    """The file a config name resolves to (``experiments/configs`` first,
+    then as a path), or None."""
+    if not os.path.isabs(path):
+        local = CONFIG_DIR / path
+        if local.exists():
+            return str(local)
+    return path if os.path.exists(path) else None
+
+
 def resolve_config(path):
     """Resolve a config name against ``experiments/configs``, else as a path.
 
@@ -22,15 +32,17 @@ def resolve_config(path):
     an empty string or None to ask for the defaults."""
     if not path:
         return None
-    if not os.path.isabs(path):
-        local = CONFIG_DIR / path
-        if local.exists():
-            return str(local)
-    if os.path.exists(path):
-        return path
-    raise FileNotFoundError(
-        f"config file {path!r} not found (looked in experiments/configs and "
-        f"as a path); pass '' to run on built-in defaults")
+    found = _found_config(path)
+    if found is None:
+        raise FileNotFoundError(
+            f"config file {path!r} not found (looked in experiments/configs and "
+            f"as a path); pass '' to run on built-in defaults")
+    return found
+
+
+def config_resolves(path) -> bool:
+    """False where ``resolve_config`` would raise."""
+    return not path or _found_config(path) is not None
 
 
 def load_configs(feat_path, online_path, minibootstrap_iterations=None):

@@ -26,6 +26,7 @@ default).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -85,15 +86,25 @@ class DetectorConfig(NamedTuple):
     # --normalize_features_regressor_detector (see heads.box_predict)
     normalize_regressor_features: bool = False
     # conv-trunk dtype: "float32", "bfloat16", or None = bfloat16 on the
-    # card, float32 on the CPU
+    # card, float32 on the CPU; ODTPU_COMPUTE_DTYPE overrides it
     compute_dtype: Optional[str] = None
 
 
+_TRUNK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def resolve_compute_dtype(cfg: DetectorConfig, device) -> torch.dtype:
-    name = cfg.compute_dtype
+    """The conv trunk's dtype, resolved in the JAX package's order:
+    ``ODTPU_COMPUTE_DTYPE`` (``float32`` or ``bfloat16``; an empty value
+    counts as unset), then ``cfg.compute_dtype``, then the device's default,
+    bf16 on the card and f32 on the CPU. Any other name raises."""
+    name = os.environ.get("ODTPU_COMPUTE_DTYPE") or cfg.compute_dtype
     if name is None:
         name = "bfloat16" if torch.device(device).type == "cuda" else "float32"
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    if name not in _TRUNK_DTYPES:
+        raise ValueError(f"unknown trunk dtype {name!r} (ODTPU_COMPUTE_DTYPE or "
+                         f"DetectorConfig.compute_dtype): use one of {sorted(_TRUNK_DTYPES)}")
+    return _TRUNK_DTYPES[name]
 
 
 @dataclass

@@ -64,13 +64,17 @@ def decode_boxes(
     boxes: torch.Tensor,
     weights=(1.0, 1.0, 1.0, 1.0),
     clip_exp: bool = True,
+    src_size_offset: float = TO_REMOVE,
 ) -> torch.Tensor:
     """(dx, dy, dw, dh) deltas [..., 4*K] against boxes [..., 4] -> [..., 4*K].
     ``clip_exp`` clamps dw/dh at log(1000/16) (the RPN's stock coder); the
-    on-line detector decode does not."""
+    on-line detector decode does not. ``src_size_offset`` is the source
+    boxes' width convention, ``x2 - x1 + offset``: 1 in the detector, and
+    ``np.spacing(1)`` in the standalone ``RegionPredictor``
+    (``predict_regions.py:55-56``)."""
     wx, wy, ww, wh = weights
-    w = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
-    h = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
+    w = boxes[..., 2] - boxes[..., 0] + src_size_offset
+    h = boxes[..., 3] - boxes[..., 1] + src_size_offset
     cx = boxes[..., 0] + 0.5 * w
     cy = boxes[..., 1] + 0.5 * h
 

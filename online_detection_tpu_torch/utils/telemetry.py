@@ -4,8 +4,8 @@ The reference's observability is wall-clock ``Timer``s
 (``engine/inference.py:379-400``), a ``MetricLogger`` with ETA and peak
 device memory (``engine/trainer.py:66,116-133``), ``setup_logger`` with an
 environment dump, and ``result.txt`` as the canonical artifact. This module
-gives the port the same surface, with ``torch.profiler`` traces in place of
-``jax.profiler``.
+gives the port the same surface, with ``torch.profiler`` traces and ranges
+(``profile_trace``, ``annotate``) in place of ``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -172,3 +172,13 @@ def profile_trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named range in ``torch.profiler`` traces (``record_function``). An
+    exception raised inside the block goes through."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield

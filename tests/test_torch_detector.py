@@ -171,3 +171,50 @@ def test_detect_batched_gt_boxes_mode_matches_jax(setup):
                                   gt_labels, gt_valid, device="cpu")
     _assert_same_detections(got, want)
     assert (got[0].boxes[0, 2] == 0).all() and got[1].shape == (2, 3, 14, 14)
+
+
+_DTYPES = (None, "float32", "bfloat16")
+
+
+@pytest.mark.parametrize("cfg_dtype", _DTYPES)
+@pytest.mark.parametrize("env", _DTYPES + ("",))
+def test_compute_dtype_resolves_as_jax(monkeypatch, env, cfg_dtype):
+    """``ODTPU_COMPUTE_DTYPE`` first (empty counts as unset), then
+    ``cfg.compute_dtype``, then the device's default: the JAX package's
+    order. The CPU's default is f32 in both packages; the card's is bf16."""
+    if env is None:
+        monkeypatch.delenv("ODTPU_COMPUTE_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("ODTPU_COMPUTE_DTYPE", env)
+    want = jdet.resolve_compute_dtype(jdet.DetectorConfig(compute_dtype=cfg_dtype))
+    cfg = detector.DetectorConfig(compute_dtype=cfg_dtype)
+    assert detector.resolve_compute_dtype(cfg, "cpu") == getattr(torch, want)
+    card = env or cfg_dtype or "bfloat16"
+    assert detector.resolve_compute_dtype(cfg, "cuda") == getattr(torch, card)
+
+
+@pytest.mark.parametrize("env, cfg_dtype", [("float16", None), ("fp32", "float32"),
+                                            (None, "half")])
+def test_unknown_compute_dtype_raises(monkeypatch, env, cfg_dtype):
+    if env is None:
+        monkeypatch.delenv("ODTPU_COMPUTE_DTYPE", raising=False)
+    else:
+        monkeypatch.setenv("ODTPU_COMPUTE_DTYPE", env)
+    with pytest.raises(ValueError, match="unknown trunk dtype"):
+        detector.resolve_compute_dtype(detector.DetectorConfig(compute_dtype=cfg_dtype), "cpu")
+
+
+def test_compute_dtype_override_reaches_detect_batched(setup, slice_run, monkeypatch):
+    """With ``ODTPU_COMPUTE_DTYPE=float32`` a config that asks for a bf16
+    trunk runs it in f32: the detections equal the f32 run's, and so the JAX
+    package's."""
+    jtree, jonline, params, online, anchors, images, sizes = setup
+    cfg = detector.DetectorConfig(**CFG_ARGS, compute_dtype="bfloat16")
+    monkeypatch.setenv("ODTPU_COMPUTE_DTYPE", "float32")
+    got = detector.detect_batched(params, online, anchors, images, sizes, cfg, True,
+                                  device="cpu")
+    _assert_same_detections(got, slice_run[1])
+    monkeypatch.delenv("ODTPU_COMPUTE_DTYPE")
+    bf16 = detector.detect_batched(params, online, anchors, images, sizes, cfg, True,
+                                   device="cpu")
+    assert not torch.equal(bf16[0].scores, got[0].scores)  # the config's bf16 trunk ran

@@ -72,6 +72,14 @@ _STAGE_MODULES = {
     "online_detection_tpu_torch.engine.backbone_cache": "PIL",
     "online_detection_tpu_torch.experiments.run_experiment_full_train": "yaml",
     "online_detection_tpu_torch.experiments.run_experiment_fine_tuning": "yaml",
+    "online_detection_tpu_torch.modules.facades": "yaml",
+    "online_detection_tpu_torch.modules.demo": "PIL",
+    "online_detection_tpu_torch.experiments.run_experiment_online_rpn_ood_oos_serial": "yaml",
+    "online_detection_tpu_torch.experiments.run_experiment_online_rpn_ood": "yaml",
+    "online_detection_tpu_torch.experiments.run_experiment_segmentation": "yaml",
+    "online_detection_tpu_torch.experiments.visualize_masks_online_segmentation": "PIL",
+    "online_detection_tpu_torch.data.ho3d_to_icwt": "PIL",
+    "online_detection_tpu_torch.utils.flops": None,
 }
 
 
