@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--seed 0]
 
 1. Builds the port's CUDA kernels from ``online_detection_tpu_torch/csrc``
-   (one nvcc per source, all started together).
+   and the RoIAlign backward kernel that the port's replaced, kept in ``tools/``
+   to be timed beside it (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, and times both. B1 (3xTF32 on the tensor
    cores) must stay within 1e-5 of the sum of its terms' magnitudes of the
@@ -83,11 +84,17 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    300), nothing frozen: finite losses, every leaf moved, the caller's
    params unchanged, B2, B3 and the RoIAlign backward kernel +1 a step; ms
    a step, peak GiB, one step traced. The backward kernel is held against
-   its plain version at the step's shapes and on adversarial boxes, and the
-   stem's and RoIAlign's autograd gradients against autograd of their plain
-   versions. Then ``dump_backbone_features`` of the 8 images (B2 +8) and 8
-   fine-tuning steps from the cached maps with the backbone and the RPN's
-   conv frozen (frozen leaves bit-identical, no backward launch); one
+   its plain version at the step's shapes, on adversarial boxes, on four
+   more layouts at the step's map (512 copies of one box; 64 boxes past the
+   whole map; 512 adversarial boxes; 512 boxes of the objects' sizes) and
+   at the odd shapes of ``BACKWARD_SHAPES``, and timed in turns with the
+   kernel it replaced, built from ``REPLACED_BACKWARD_SOURCE``, at the step
+   and on each layout; the stem's and RoIAlign's autograd
+   gradients are held against autograd of their plain versions, and B2's
+   fp32 route is timed at the step's canvas. Then ``dump_backbone_features``
+   of the 8 images (B2 +8) and 8 fine-tuning steps from the cached maps
+   with the backbone and the RPN's conv frozen (frozen leaves
+   bit-identical, no backward launch); one
    ``training_loss`` gradient on a small canvas on the card and on the CPU;
    the two SGD CLIs (``--max_iter 3``; ``--use_backbone_features
    --max_iter 2``) on a PIL-written tree and the tester CLI over the
@@ -171,6 +178,13 @@ SIMT_B1_MS = {"rpn": 11.52, "detector": 6.64, "mask": 1.63, "mining rpn": 8.78,
 # contracted H first per pooled row; tools/roi_variants.py keeps both and
 # times them beside the new ones)
 REPLACED_ROI_MS = {"proposals": 2.030, "detections": 0.767, "harvest": 1.631}
+# the RoIAlign backward per training step (g [1, 512, 14, 14, 1024] f32 onto
+# 38 x 50) on the same kind of card with the kernel this one replaced (it
+# re-read g from device memory for each column its bins reach), as recorded
+# before; its source is kept, and this smoke builds it and times it again
+# beside the new one on every layout
+REPLACED_BACKWARD_MS = 0.598
+REPLACED_BACKWARD_SOURCE = ROOT / "tools" / "roi_align_backward_replaced.cu"
 # B2 per inference batch (bf16, [8, 608, 800, 3]) on the same kind of card
 # with the SIMT fp32 kernel the bf16 route replaced (PERF.md, section 6); the
 # fp32 route still runs it
@@ -522,6 +536,36 @@ def roi_ops(rois, h, w, c, pooled=14, scale=1.0 / 16.0):
     n_w = torch.clamp(torch.ceil(size_w / pooled), 1, 8)
     n_h = torch.clamp(torch.ceil(size_h / pooled), 1, 8)
     return float((n_w * n_h).sum()) * pooled * pooled * c * 8.0
+
+
+def roi_footprint(rois, h, w, pooled=14, scale=1.0 / 16.0, max_samples=8):
+    """[..., 4] boxes -> [...] int: the feature cells of an [h, w] map that
+    each RoI's gradient reaches in the RoIAlign backward kernel, the rows
+    times the columns that lie between some bin's first and last tap. At
+    ``pooled`` <= 16 the kernel adds into each such cell once per channel
+    vector, with one atomic. Sample coordinates are rounded op by op in
+    float32, as the kernels round them."""
+    import torch
+
+    r = rois.reshape(-1, 4).float()
+
+    def covered(lo, hi, dim):
+        start = lo * scale
+        bin_size = (torch.clamp(hi * scale - start, min=1.0) / pooled)[:, None]
+        n = torch.clamp(torch.ceil(bin_size), 1, max_samples)
+        p = torch.arange(pooled, dtype=torch.float32, device=r.device)[None]
+
+        def tap(s):  # the lower tap row of sample s of every bin
+            coord = start[:, None] + (p + (s + 0.5) / n) * bin_size
+            return torch.floor(coord.clamp(0.0, dim - 1.0))
+
+        first, last = tap(0.0), torch.clamp(tap(n - 1.0) + 1.0, max=dim - 1.0)
+        grid = torch.arange(dim, dtype=torch.float32, device=r.device)
+        inside = (grid >= first[..., None]) & (grid <= last[..., None])  # [R, P, dim]
+        return inside.any(dim=1).sum(-1)
+
+    return (covered(r[:, 1], r[:, 3], h) * covered(r[:, 0], r[:, 2], w)).reshape(
+        rois.shape[:-1])
 
 
 def check_roi(inputs, report):
@@ -2005,20 +2049,108 @@ def step_inputs(params, ds, cfg, dev, gen):
     return c4.contiguous(), sample.boxes[None].contiguous()
 
 
-def check_roi_backward(c4, rois, seed, report):
+def backward_stress_rois(rng, r, h, w):
+    """The backward kernel's other layouts onto an [h, w] map at stride 16,
+    [1, n, 4] boxes each: ``r`` copies of one box (every RoI's atomics on
+    the same cells); 64 boxes past the whole map with bins over 7 cells a
+    side (8 samples per bin and axis, every cell touched: the widest
+    footprint); ``r`` adversarial boxes (``adversarial_rois``); and ``r``
+    boxes of the teaching set's object sizes (sides in OBJECT_SIDES, wholly
+    on the map), as a trained RPN proposes around objects."""
+    import numpy as np
+
+    one = np.tile(np.array([[[200.0, 150.0, 420.0, 380.0]]], np.float32), (1, r, 1))
+    lo = -rng.uniform(0, 400, size=(64, 2))
+    hi = np.array([w, h]) * 16.0 + rng.uniform(1700, 2400, size=(64, 2))
+    side = rng.uniform(*OBJECT_SIDES, size=(r, 2))
+    corner = rng.uniform(0, 1, size=(r, 2)) * (np.array([w, h]) * 16.0 - side)
+    return {"one box x512": one,
+            "whole map x64": np.concatenate([lo, hi], -1)[None].astype(np.float32),
+            "adversarial x512": adversarial_rois(rng, 1, r, 16.0 * w),
+            "object-sized x512": np.concatenate([corner, corner + side], -1)[None].astype(
+                np.float32)}
+
+
+def start_replaced_backward(_build):
+    """Starts nvcc on the RoIAlign backward kernel that
+    ``csrc/roi_align_backward.cu`` replaced (``REPLACED_BACKWARD_SOURCE``)
+    into the build directory: (process, library)."""
+    d = _build.BUILD_DIR / "replaced"
+    d.mkdir(parents=True, exist_ok=True)
+    so = d / "libroi_align_backward_replaced.so"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                             str(so), str(REPLACED_BACKWARD_SOURCE)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def load_replaced_backward(started, _build):
+    """Waits for ``start_replaced_backward``'s build and returns a function
+    (g, rois, h, w) -> dF that zeroes a map and launches that kernel on it,
+    as the port's wrapper does its own (no launch count), and nvcc's log."""
+    import ctypes
+
+    import torch
+
+    proc, so = started
+    log, _ = proc.communicate()
+    if proc.returncode:
+        fail(f"nvcc failed for {REPLACED_BACKWARD_SOURCE.name}:\n{log}")
+    fn = ctypes.CDLL(str(so)).odt_roi_align_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+    def run(g, rois, h, w):
+        b, r, p, _, c = g.shape
+        out = torch.zeros((b, h, w, c), device=g.device, dtype=torch.float32)
+        _build.check(fn(g.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c, p,
+                        1.0 / 16.0, torch.cuda.current_stream(g.device).cuda_stream),
+                     "the replaced RoIAlign backward kernel")
+        return out
+    return run, log
+
+
+# shapes the wrapper admits beyond the training step's: (b, r, pooled, h, w, c),
+# among them a ragged last channel tile, pooled rows in several slabs (pooled >
+# 16) at the largest map, and one channel vector
+BACKWARD_SHAPES = ((2, 40, 7, 50, 84, 256), (1, 24, 32, 128, 128, 1000),
+                   (1, 16, 17, 9, 13, 4), (1, 9, 1, 5, 3, 8), (2, 12, 16, 128, 96, 132))
+
+
+def check_roi_backward(c4, rois, seed, report, replaced):
     """The RoIAlign backward kernel against its plain version at a training
-    step's shapes (g [1, 512, 14, 14, 1024] f32 onto a 38 x 50 map) and on
-    the adversarial boxes over a 38 x 50 and a 50 x 84 map; the plain version
-    runs on the CPU for the check, as the forward's adversarial checks do
-    (its einsums drift on the card), and on the card for its time. Within
-    1e-5 of max|ref|: fp32 sums, and atomics whose order changes from run to
-    run. Then RoIAlign's autograd gradient (B3 forward, this backward)
-    against autograd of the plain version on the card."""
+    step's shapes (g [1, 512, 14, 14, 1024] f32 onto a 38 x 50 map), on the
+    adversarial boxes over a 38 x 50 and a 50 x 84 map, on the layouts of
+    ``backward_stress_rois`` at the step's map and at the odd shapes of
+    ``BACKWARD_SHAPES``; the plain version runs on the CPU for the check, as
+    the forward's adversarial checks do (its einsums drift on the card), and
+    on the card for its time. Within 1e-5 of max|ref|: fp32 sums, and
+    atomics whose order changes from run to run (the largest difference
+    between two launches on the same inputs is recorded). At the step and on
+    each layout, ``replaced`` (the kernel this one replaced, from
+    ``load_replaced_backward``) is held to the same tolerance and timed in
+    turns with it. Then RoIAlign's autograd gradient (B3 forward, this
+    backward) against autograd of the plain version on the card."""
     import numpy as np
     import torch
 
     from online_detection_tpu_torch.ops.roi_align import (
         roi_align, roi_align_backward, roi_align_backward_reference, roi_align_reference)
+
+    def both_timed(g, boxes, h, w, ref, iters):
+        """(new ms, replaced ms, replaced's max err): the replaced kernel held
+        to 1e-5 of max|ref|, then the two timed in turns, new, replaced,
+        replaced, new."""
+        old = replaced(g, boxes, h, w).cpu()
+        err = (old - ref).abs()
+        if not err.max() <= 1e-5 * ref.abs().max():
+            fail(f"the replaced RoIAlign backward kernel disagrees with the plain version "
+                 f"(max err {float(err.max())})")
+        t = {"new": [], "replaced": []}
+        for k in ("new", "replaced", "replaced", "new"):
+            fn = roi_align_backward if k == "new" else replaced
+            t[k].append(timed(lambda: fn(g, boxes, h, w), iters))
+        return sum(t["new"]) / 2, sum(t["replaced"]) / 2, float(err.max())
 
     rng = np.random.default_rng(seed + 11)
     rec = report.setdefault("roi_align_backward", {"calls": []})
@@ -2027,19 +2159,31 @@ def check_roi_backward(c4, rois, seed, report):
     got = roi_align_backward(g, rois, h, w)
     ref = roi_align_backward_reference(g.cpu(), rois.cpu(), h, w)
     check_close("roi_align_backward", got.cpu(), ref, 1e-5 * ref.abs().max(), report)
+    spread = float((roi_align_backward(g, rois, h, w) - got).abs().max())
     card_plain = roi_align_backward_reference(g, rois, h, w)
-    ms = timed(lambda: roi_align_backward(g, rois, h, w), 10)
+    ms, old_ms, old_err = both_timed(g, rois, h, w, ref, 20)
     plain = timed(lambda: roi_align_backward_reference(g, rois, h, w), 3)
     flops = roi_ops(rois, h, w, c)
     nbytes = 4.0 * (g.numel() + got.numel() + rois.numel())
     bound, by = bound_of(flops, nbytes)
+    cells = roi_footprint(rois.cpu(), h, w)
     add_call(rec, {"role": "training step", "shape": list(g.shape), "ms": ms, "plain_ms": plain,
                    "bound_ms": bound, "flops": flops, "bytes": nbytes,
+                   "replaced_ms": old_ms, "replaced_max_abs_err": old_err,
+                   "replaced_ms_recorded": REPLACED_BACKWARD_MS, "run_to_run_max_abs_diff": spread,
+                   "footprint_cells_mean": float(cells.float().mean()),
+                   "atomic_bytes": float(cells.sum()) * c * 4.0,
                    "card_plain_max_abs_err": float((card_plain - got).abs().max())})
+    rec["replaced_ms"], rec["replaced_ms_recorded"] = old_ms, REPLACED_BACKWARD_MS
     print(f"  roi_align_backward[training step] {list(g.shape)} -> {list(got.shape)} f32: "
-          f"{ms:.3f} ms (plain {plain:.3f} ms; bound {bound:.3f} ms, {by}: {bound / ms:.0%} of "
-          f"it); max err {float((got.cpu() - ref).abs().max()):.3g} of max|ref| "
-          f"{float(ref.abs().max()):.3g}", flush=True)
+          f"{ms:.4f} ms (replaced kernel {old_ms:.4f} ms here, {REPLACED_BACKWARD_MS:.3f} ms "
+          f"recorded; plain {plain:.3f} ms; "
+          f"bound {bound:.4f} ms, {by}: {bound / ms:.0%} of it); max err "
+          f"{float((got.cpu() - ref).abs().max()):.3g} of max|ref| {float(ref.abs().max()):.3g}; "
+          f"two launches differ by {spread:.3g}; footprint {float(cells.float().mean()):.1f} "
+          f"cells a RoI ({float(cells.sum()) * c * 4.0 / 1e6:.1f} MB of atomics beside "
+          f"{4.0 * g.numel() / 1e6:.1f} MB of g)", flush=True)
+    del card_plain
 
     worst = {}
     for hh, ww in ((38, 50), (50, 84)):
@@ -2050,6 +2194,41 @@ def check_roi_backward(c4, rois, seed, report):
         check_close("roi_align_backward", got_a, ref_a, 1e-5 * ref_a.abs().max(), report)
         worst[f"{hh}x{ww}"] = float((got_a - ref_a).abs().max())
     rec["adversarial_max_abs_err"] = worst
+
+    stress = {}
+    for role, boxes in backward_stress_rois(rng, rois.shape[1], h, w).items():
+        boxes = torch.from_numpy(boxes).cuda()
+        gs = g[:, :boxes.shape[1]].contiguous()
+        got_s = roi_align_backward(gs, boxes, h, w)
+        ref_s = roi_align_backward_reference(gs.cpu(), boxes.cpu(), h, w)
+        check_close("roi_align_backward", got_s.cpu(), ref_s, 1e-5 * ref_s.abs().max(), report)
+        cells = roi_footprint(boxes.cpu(), h, w)
+        new_ms, old_ms, old_err = both_timed(gs, boxes, h, w, ref_s, 10)
+        stress[role] = {
+            "shape": list(gs.shape), "max_abs_err": float((got_s.cpu() - ref_s).abs().max()),
+            "max_abs_ref": float(ref_s.abs().max()),
+            "run_to_run_max_abs_diff": float((roi_align_backward(gs, boxes, h, w)
+                                              - got_s).abs().max()),
+            "footprint_cells_mean": float(cells.float().mean()),
+            "atomic_bytes": float(cells.sum()) * c * 4.0, "ms": new_ms, "replaced_ms": old_ms,
+            "replaced_max_abs_err": old_err}
+        print(f"  roi_align_backward[{role}] {list(gs.shape)} onto {h}x{w}: {new_ms:.4f} ms "
+              f"(replaced kernel {old_ms:.4f} ms); footprint {float(cells.float().mean()):.1f} "
+              f"cells a RoI ({stress[role]['atomic_bytes'] / 1e6:.1f} MB of atomics); max err "
+              f"{stress[role]['max_abs_err']:.3g} of max|ref| {stress[role]['max_abs_ref']:.3g}; "
+              f"two launches differ by {stress[role]['run_to_run_max_abs_diff']:.3g}", flush=True)
+    rec["stress"] = stress
+
+    shapes = {}
+    for b, r, p, hh, ww, cc in BACKWARD_SHAPES:
+        adv = torch.from_numpy(adversarial_rois(rng, b, r, 16.0 * ww)).cuda()
+        gx = torch.from_numpy(rng.normal(size=(b, r, p, p, cc)).astype(np.float32)).cuda()
+        got_x = roi_align_backward(gx, adv, hh, ww, pooled=p).cpu()
+        ref_x = roi_align_backward_reference(gx.cpu(), adv.cpu(), hh, ww, pooled=p)
+        check_close("roi_align_backward", got_x, ref_x, 1e-5 * ref_x.abs().max(), report)
+        shapes[f"{[b, r, p, p, cc]} onto {hh}x{ww}"] = float((got_x - ref_x).abs().max())
+    rec["odd_shapes_max_abs_err"] = shapes
+    print(f"  roi_align_backward at odd shapes (adversarial boxes): max err {shapes}", flush=True)
 
     f = c4.detach().clone().requires_grad_(True)
     f_ref = c4.detach().clone().requires_grad_(True)
@@ -2097,6 +2276,15 @@ def check_stem_grad(params, ds, report):
     for name, a, b in zip(("w", "scale", "bias"), leaves, refs):
         check_close("stem_pool grad", a.grad, b.grad, 1e-4 * b.grad.abs().max(), report)
         errs[name] = float((a.grad - b.grad).abs().max() / b.grad.abs().max())
+    with torch.no_grad():  # the fp32 route's forward at the step's shape, timed
+        args = (st.weight, st.scale, st.bias)
+        ms = timed(lambda: stem_fused(x, *args), 20)
+        flops = 2.0 * out.shape[1] * 2 * out.shape[2] * 2 * 64 * 147  # the conv before the pool
+        bound, by = bound_of(flops, 4.0 * (x.numel() + out.numel() + st.weight.numel() + 128))
+    report["stem_pool"]["f32_route_train"] = {"shape": list(x.shape), "ms": ms, "bound_ms": bound,
+                                              "bound_by": by}
+    print(f"  stem_pool fp32 route at the training canvas {list(x.shape)}: {ms:.4f} ms (bound "
+          f"{bound:.4f} ms, {by}: {bound / ms:.1%} of it)", flush=True)
     with torch.no_grad():  # windows whose two largest positive values tie or nearly do
         z = F.conv2d(x.permute(0, 3, 1, 2), st.weight, stride=2, padding=3)
         r = torch.relu(z * st.scale[:, None, None] + st.bias[:, None, None])
@@ -2160,16 +2348,18 @@ def small_sgd_reference_check(params, report, dev):
         fail(f"training_loss gradient: card and CPU disagree: {err}")
 
 
-def sgd_phase(seed, card, report, out_dir, dev):
+def sgd_phase(seed, card, report, out_dir, dev, replaced_backward):
     """The SGD baselines at full width: ``do_train`` for SGD_STEPS steps over
     SGD_IMAGES 800x600 teaching images (608x800 canvases) with the solver of
     ``config_full_train_ycbv.yaml``, nothing frozen (B2, B3 and the RoIAlign
     backward +1 a step; one step traced); the kernels' gradients against
-    their plain versions; then ``dump_backbone_features`` of the images (B2
-    +1 an image) and FT_STEPS fine-tuning steps from the cached maps with
-    the backbone and the RPN's conv frozen (bit-identical afterwards, no
-    RoIAlign backward); the card against the CPU on a small canvas; then the
-    two SGD CLIs and the tester over the fine-tuned ``model_final.pkl``."""
+    their plain versions, the backward beside the kernel it replaced
+    (``replaced_backward``, from ``load_replaced_backward``); then
+    ``dump_backbone_features`` of the images (B2 +1 an image) and FT_STEPS
+    fine-tuning steps from the cached maps with the backbone and the RPN's
+    conv frozen (bit-identical afterwards, no RoIAlign backward); the card
+    against the CPU on a small canvas; then the two SGD CLIs and the tester
+    over the fine-tuned ``model_final.pkl``."""
     import math
     import pickle
 
@@ -2261,7 +2451,7 @@ def sgd_phase(seed, card, report, out_dir, dev):
 
         with ieee_fp32():
             c4, rois = step_inputs(trained, ds, cfg, dev, torch.Generator().manual_seed(1))
-            check_roi_backward(c4.detach(), rois.detach(), seed, report)
+            check_roi_backward(c4.detach(), rois.detach(), seed, report, replaced_backward)
             del c4
             check_stem_grad(trained, ds, report)
         del trained
@@ -2883,10 +3073,19 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.time()
-    logs = _build.build_all(KERNELS)
+    started = start_replaced_backward(_build)  # built beside the port's kernels
+    try:
+        logs = _build.build_all(KERNELS)
+        replaced_backward, logs["roi_align_backward (replaced)"] = load_replaced_backward(
+            started, _build)
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].wait()
     for k in KERNELS:
         _build.load(k)
-    print(f"built {len(KERNELS)} kernels in {time.time() - t0:.1f} s", flush=True)
+    print(f"built {len(KERNELS)} kernels and the replaced RoIAlign backward in "
+          f"{time.time() - t0:.1f} s", flush=True)
     for k, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2993,7 +3192,7 @@ def main(argv=None) -> int:
     print("checkpoint files and the stock path:", flush=True)
     host_paths.update(pretrained_phase(args.seed, card, report, out_dir))
     print("the SGD baselines:", flush=True)
-    host_paths.update(sgd_phase(args.seed, card, report, out_dir, dev))
+    host_paths.update(sgd_phase(args.seed, card, report, out_dir, dev, replaced_backward))
     for path in (list(train_paths.values()) + [infer_launches] + list(host_paths.values())
                  + list(api_paths.values())):
         for k, n in path.items():
@@ -3010,8 +3209,11 @@ def main(argv=None) -> int:
           f"{REPLACED_ROI_MS['harvest']:.3f} ms; bound {b4['bound_ms']:.3f} ms) on {card}",
           flush=True)
     bw = report["roi_align_backward"]
-    print(f"RoIAlign backward per training step: {bw['ms']:.3f} ms (plain {bw['plain_ms']:.3f} "
-          f"ms; bound {bw['bound_ms']:.3f} ms, {bw['bound_by']}) on {card}", flush=True)
+    print(f"RoIAlign backward per training step: {bw['ms']:.4f} ms (replaced kernel "
+          f"{bw['replaced_ms']:.4f} ms here, {REPLACED_BACKWARD_MS:.3f} ms recorded; plain "
+          f"{bw['plain_ms']:.3f} ms; bound "
+          f"{bw['bound_ms']:.4f} ms, {bw['bound_by']}: {bw['bound_ms'] / bw['ms']:.0%} of it) on "
+          f"{card}", flush=True)
 
     replaces = {  # the split is B1's operand preparation
         "gaussian_mmv": "online_detection_tpu/ops/gaussian_mmv.py:219",
@@ -3026,10 +3228,17 @@ def main(argv=None) -> int:
     # the stock path's calls: B2's fp32 route and B3 at its shapes
     bw = report["roi_align_backward"]
     extra = {"stem_pool": {"f32_route": report["stem_pool"]["f32_route"],
+                           "f32_route_train": report["stem_pool"]["f32_route_train"],
                            "grad": report["stem_pool"]["grad"]},
              "roi_align": {"pretrained_calls": report["roi_align"]["pretrained_calls"]},
-             "roi_align_backward": {k: bw[k] for k in ("tolerance", "adversarial_max_abs_err",
-                                                       "autograd_max_abs_err")}}
+             "roi_align_backward": {k: bw[k] for k in (
+                 "replaced_ms", "tolerance", "adversarial_max_abs_err", "autograd_max_abs_err",
+                 "odd_shapes_max_abs_err")} | {
+                 "run_to_run_max_abs_diff": bw["calls"][0]["run_to_run_max_abs_diff"],
+                 "footprint_cells_mean": bw["calls"][0]["footprint_cells_mean"],
+                 "stress": {k: {m: v[m] for m in ("ms", "replaced_ms", "max_abs_err",
+                                                  "footprint_cells_mean")}
+                            for k, v in bw["stress"].items()}}}
     sources = {k: k for k in KERNELS}
     sources["tf32_split"] = "gaussian_mmv"
     line = {"kernels": [

@@ -24,10 +24,14 @@ All of them accumulate in fp32 and round once to the features' dtype.
 (``RoIAlignFunction``) when autograd records: the forward is the same call,
 the backward ``roi_align_backward``, the transpose ``dF = sum_r A_r^T g_r
 B_r``: kernel ``csrc/roi_align_backward.cu`` on a CUDA tensor (its own launch
-counter), ``roi_align_backward_reference`` on a CPU tensor. The boxes get no
-gradient: the JAX trainer stops the proposals' gradient, and GT boxes are
-constants. A call that autograd does not record (no grad, or
-``inference_mode``) takes the forward alone, as before.
+counter), ``roi_align_backward_reference`` on a CPU tensor. The kernel reads
+g from device memory once: persistent blocks bring each (RoI, 128-channel
+tile) slab of g into a shared-memory ring by TMA while their consumer warps
+contract the previous slab in registers and add it into dF with one atomic
+per cell the RoI touches and channel vector. The boxes get no gradient:
+the JAX trainer stops the proposals' gradient, and GT boxes are constants.
+A call that autograd does not record (no grad, or ``inference_mode``) takes
+the forward alone, as before.
 """
 
 from __future__ import annotations

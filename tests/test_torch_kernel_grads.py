@@ -2,8 +2,13 @@
 where they take their plain versions:
 
 - ``roi_align`` in the features against ``jax.grad`` of the JAX package's
-  ``roi_align`` (zero-area boxes and boxes past both edges among them), and
-  the backward's plain version against a dense float64 evaluation;
+  ``roi_align`` (zero-area boxes and boxes past both edges among them; one
+  box repeated 512 times; 64 boxes past the whole map with 8 samples per
+  bin; the smoke's 512 adversarial and 512 object-sized boxes), and the backward's plain version against a dense float64
+  evaluation;
+- ``chip_smoke.roi_footprint`` (the cells the backward kernel adds into a
+  RoI, which the smoke reports) against the taps of every sample, worked
+  out one by one;
 - ``stem_fused`` in ``w``, ``scale`` and ``bias`` against ``jax.grad`` of the
   JAX package's f32 ``resnet.stem`` (its XLA path) at even, odd and ragged
   sizes;
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from online_detection_tpu.models import resnet as jresnet
 from online_detection_tpu.ops.roi_align import roi_align as jroi_align
 from online_detection_tpu_torch.ops import roi_align as proi
@@ -80,6 +86,90 @@ def test_roi_align_grad_matches_jax(hw, c, r):
     got = proi.roi_align_backward_reference(torch.from_numpy(ct)[None],
                                             torch.from_numpy(rois)[None], h, w)[0]
     np.testing.assert_allclose(got.numpy(), dense, rtol=0, atol=2e-6 * np.abs(dense).max())
+
+
+def stress_rois(kind, rng, h, w, scale=16.0):
+    """The backward kernel's stress layouts on an [h, w] map at stride 16:
+    512 copies of one box (every RoI's atomics on the same cells), 64 boxes
+    past the whole map with bins over 7 cells a side (8 samples per bin and
+    axis, every cell touched), or one of the smoke's 512-box layouts of
+    ``chip_smoke.backward_stress_rois`` (adversarial; object-sized)."""
+    if kind in ("adversarial x512", "object-sized x512"):
+        return chip_smoke.backward_stress_rois(rng, 512, h, w)[kind][0]
+    if kind == "one box x512":
+        box = np.array([w * 0.25, h * 0.25, w * 0.55, h * 0.6], np.float32) * scale
+        return np.tile(box[None], (512, 1))
+    lo = -rng.uniform(0, 25, size=(64, 2)) * scale
+    hi = (np.array([w, h]) + rng.uniform(110, 150, size=(64, 2))) * scale
+    return np.concatenate([lo, hi], -1).astype(np.float32)
+
+
+STRESS = ["one box x512", "whole map x64", "adversarial x512", "object-sized x512"]
+
+
+@pytest.mark.parametrize("kind", STRESS)
+def test_roi_align_grad_stress_layouts_match_jax(kind):
+    rng = np.random.default_rng(len(kind))
+    h, w, c = 38, 50, 8
+    feats = rng.normal(0, 1, (h, w, c)).astype(np.float32)
+    rois = stress_rois(kind, rng, h, w)
+    r = rois.shape[0]
+    ct = rng.normal(0, 1, (r, 14, 14, c)).astype(np.float32)
+    if kind == "whole map x64":  # 8 samples per bin and axis: the widest footprint
+        n = np.ceil(np.maximum(rois[:, 2:] - rois[:, :2], 16.0) / 16.0 / 14)
+        assert (n >= 8).all()
+        assert (chip_smoke.roi_footprint(torch.from_numpy(rois), h, w) == h * w).all()
+
+    want = jax.grad(lambda f: jnp.sum(jroi_align(f, jnp.asarray(rois)) * ct))(
+        jnp.asarray(feats))
+    f = torch.from_numpy(feats).requires_grad_(True)
+    (proi.roi_align(f, torch.from_numpy(rois)) * torch.from_numpy(ct)).sum().backward()
+    want = np.asarray(want)
+    np.testing.assert_allclose(f.grad.numpy(), want, rtol=0, atol=2e-5 * np.abs(want).max())
+
+    dense = dense_backward(ct, rois, h, w)
+    got = proi.roi_align_backward_reference(torch.from_numpy(ct)[None],
+                                            torch.from_numpy(rois)[None], h, w)[0]
+    np.testing.assert_allclose(got.numpy(), dense, rtol=0, atol=2e-6 * np.abs(dense).max())
+
+
+def footprint_by_samples(rois, h, w, pooled=14, scale=np.float32(1.0 / 16.0)):
+    """Per RoI: rows x columns between some bin's first and last tap, every
+    sample's coordinate worked out one by one in float32."""
+    f32 = np.float32
+    out = []
+    for x1, y1, x2, y2 in rois:
+        count = 1
+        for lo, hi, dim in ((y1, y2, h), (x1, x2, w)):
+            start = f32(lo) * scale
+            bin_size = f32(max(f32(f32(hi) * scale - start), f32(1.0)) / f32(pooled))
+            n = int(min(max(np.ceil(bin_size), 1), 8))
+            hit = np.zeros(dim, bool)
+            for p in range(pooled):
+                taps = []
+                for s in range(n):
+                    coord = f32(start + f32(f32(p) + f32(f32(s + 0.5) / f32(n))) * bin_size)
+                    low = int(np.floor(min(max(coord, f32(0)), f32(dim - 1))))
+                    taps += [low, min(low + 1, dim - 1)]
+                hit[min(taps):max(taps) + 1] = True
+            count *= int(hit.sum())
+        out.append(count)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("kind", ["adversarial"] + STRESS)
+def test_roi_footprint_matches_taps(kind):
+    rng = np.random.default_rng(5)
+    h, w = 38, 50
+    rois = adversarial_rois(rng, 40, h, w) if kind == "adversarial" else \
+        stress_rois(kind, rng, h, w)
+    got = chip_smoke.roi_footprint(torch.from_numpy(rois), h, w)
+    np.testing.assert_array_equal(got.numpy(), footprint_by_samples(rois, h, w))
+    # every cell with a non-zero weight is in it
+    a, b = proi._matrices(torch.from_numpy(rois), 14, h, w, 1.0 / 16.0)
+    nonzero = (a != 0).any(1).sum(-1) * (b != 0).any(1).sum(-1)
+    assert (got >= nonzero).all()
+    assert chip_smoke.roi_footprint(torch.from_numpy(rois[None]), h, w).shape == (1, len(rois))
 
 
 def test_roi_align_batched_grad_and_untracked_calls():
