@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(roi::THREADS, roi::MIN_BLOCKS) roi_align_kerne
   roi::pool_rows<T>(a);
 }
 
-bool opted[2];  // per dtype: the large shared-memory opt-in is set
+unsigned long long opted[2];  // per dtype, a bit a device: the opt-in is set
 
 }  // namespace
 

@@ -343,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-bool opted = false;  // the large shared-memory opt-in is set
+unsigned long long opted = 0;  // a bit a device: the large shared-memory opt-in is set
 
 }  // namespace
 
@@ -365,16 +365,17 @@ extern "C" int odt_roi_align_backward(const void* grad, const void* rois, void* 
   const cuuint32_t box[3] = {(cuuint32_t)a.tw, (cuuint32_t)(a.pc * pooled), 1};
   status = bulk::encode_3d(&gmap, grad, dims, box);
   if (status) return status;
-  if (!opted) {  // once per process: allow more than 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        roi_align_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return (int)e;
-    opted = true;
-  }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(opted & bit)) {  // once per process and device: allow more than 48 KB
+    e = cudaFuncSetAttribute(roi_align_backward_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    opted |= bit;
+  }
   const long long grid = a.items < sms ? a.items : sms;
   roi_align_backward_kernel<<<(unsigned)grid, THREADS, smem_bytes(a), (cudaStream_t)stream>>>(
       gmap, a);

@@ -358,15 +358,21 @@ __device__ __forceinline__ void pool_rows(const Args& a) {
 }
 
 // Launches `kernel` (a __global__ wrapper of pool_rows<T>) for one call.
+// `opted` holds one bit a device: the opt-in is set per device.
 template <typename Kernel>
-int launch(Kernel kernel, Args a, int b, int r, int vec, void* stream, bool* opted) {
+int launch(Kernel kernel, Args a, int b, int r, int vec, void* stream,
+           unsigned long long* opted) {
   const int status = plan(a, vec, b, r);
   if (status) return status;
-  if (!*opted) {  // once per process and kernel: allow more than 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(*opted & bit)) {  // once per process, kernel and device: allow more than 48 KB
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             227 * 1024);
     if (e != cudaSuccess) return (int)e;
-    *opted = true;
+    *opted |= bit;
   }
   kernel<<<(unsigned)(b * r * a.tiles), THREADS, smem_bytes(a, vec),
            (cudaStream_t)stream>>>(a);

@@ -24,13 +24,27 @@ def _axis_weights(start: float, size: float, dim: int, out: int) -> np.ndarray:
     return (w_low + w_high).astype(np.float32)  # [out, dim]
 
 
+def _rows(wy: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """``wy @ mask`` for bilinear weights wy [out, H] (at most two adjacent
+    non-zeros a row) and a 0/1 mask [H, W], from the two rows each output
+    row reads: each product is exact and each sum rounds once, so this is
+    the BLAS product bit for bit, without waking a BLAS thread pool on a
+    [out, H] x [H, W] product."""
+    h = mask.shape[0]
+    low = np.argmax(wy != 0, axis=1)  # the first non-zero (0 for a zero row)
+    high = np.minimum(low + 1, h - 1)
+    rows = np.arange(wy.shape[0])
+    w_high = np.where(high > low, wy[rows, high], np.float32(0))
+    return wy[rows, low][:, None] * mask[low] + w_high[:, None] * mask[high]
+
+
 def project_mask_on_box_np(mask: np.ndarray, box, out: int = 14) -> np.ndarray:
     """mask [H, W] (0/1), box (x1, y1, x2, y2) -> [out, out] float32."""
     h, w = mask.shape
     x1, y1, x2, y2 = [float(v) for v in box]
     wy = _axis_weights(y1, max(y2 - y1 + 1.0, 1.0), h, out)
     wx = _axis_weights(x1, max(x2 - x1 + 1.0, 1.0), w, out)
-    return wy @ mask.astype(np.float32) @ wx.T
+    return _rows(wy, mask.astype(np.float32)) @ wx.T
 
 
 def project_masks_for_image(masks: np.ndarray, boxes_canvas: np.ndarray, scale: float,

@@ -91,7 +91,7 @@ def main(argv=None):
     canvas = _common.dataset_canvas(train_ds, extras)
     t_total = time.time()
     hkw = dict(dcfg=det_cfg, output_dir=output_dir, min_size=extras["min_size_test"],
-               max_size=extras["max_size_test"], device=dev)
+               max_size=extras["max_size_test"], device=dev, prefetch="threads")
 
     def generator(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -151,7 +151,8 @@ def main(argv=None):
     results, _ = pipe.run_inference(
         params, online, test_ds, canvas, det_cfg, with_masks=False, output_dir=output_dir,
         iou_thresholds=extras["iou_thresholds"], use_07_metric=extras["use_07_metric"],
-        min_size=extras["min_size_test"], max_size=extras["max_size_test"], device=dev)
+        min_size=extras["min_size_test"], max_size=extras["max_size_test"], device=dev,
+        prefetch="threads")
     for k, v in results.items():
         if "map" in k:
             print(f"{k}: {v:.4f}")

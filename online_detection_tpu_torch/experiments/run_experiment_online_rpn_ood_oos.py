@@ -11,18 +11,23 @@ its save and load file contracts. Run it as a module:
 Two training routes, as in the JAX CLI:
 
 - the device route (``harvest_dataset_device`` + ``train_online_modules_device``:
-  the reservoirs and the solvers stay on the card), on the card unless a
-  save- or load-features flag is given;
+  the reservoirs and the solvers stay on the card), on the card or with
+  ``--n_devices`` above 1, unless a save- or load-features flag is given;
 - the host route (``harvest_dataset`` -> ``HarvestAccumulator`` ->
   ``save_features`` / ``load_features`` -> ``train_online_modules``), with
   those flags and with ``--CPU``.
+
+``--n_devices N`` (N > 1) builds a mesh of N cards (``parallel/mesh.py``;
+with ``--CPU``, N virtual CPU entries): the harvest trunk and inference
+split each canvas batch over it, the solvers each head's classes; the
+slices run one after another, so the mesh spreads memory, not time. The
+loaders prefetch canvases on a thread pool (``prefetch="threads"``).
 
 Without ``--CPU`` the run needs a CUDA card and raises before any work when
 there is none. Config names resolve against ``experiments/configs``. The
 feature extractor comes from ``--weights``, or from the file MODEL.WEIGHT
 resolves to (a Detectron ``.pkl`` or a maskrcnn-benchmark ``.pth``); with
-neither, it is random from seed 0, with a warning. Not ported yet:
-``--n_devices`` above 1 raises (ROADMAP.md §A item 10).
+neither, it is random from seed 0, with a warning.
 """
 
 from __future__ import annotations
@@ -59,7 +64,9 @@ def parse_args(argv=None):
                         help="Run on the CPU (plain PyTorch in place of the CUDA kernels) "
                         "and take the host route")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="More than 1 is not ported yet and raises")
+                        help="Shard the harvest, the solvers and inference over this many "
+                        "devices (more than 1; virtual CPU entries with --CPU); the slices "
+                        "run one after another, so this spreads memory, not time")
     parser.add_argument("--data_root", type=str, default="Data/datasets",
                         help="Root of the dataset tree (reference layout)")
     parser.add_argument("--weights", type=str, default=None,
@@ -74,10 +81,6 @@ def main(argv=None):
     from online_detection_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cpu" if args.CPU else None)  # raises here without a card
-    if args.n_devices and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1: training over a device mesh is not ported yet "
-            "(ROADMAP.md, section A, item 10)")
 
     from online_detection_tpu_torch.experiments import _common
     from online_detection_tpu_torch.pipelines import device_pipeline as dpipe
@@ -102,10 +105,16 @@ def main(argv=None):
     test_ds = _common.make_dataset(extras["test_datasets"][0], args.data_root)
     params = _common.load_params(args.weights, extras, train_cfg.num_classes).to(dev)
     canvas = _common.dataset_canvas(train_ds, extras)
-    sizes = dict(min_size=extras["min_size_test"], max_size=extras["max_size_test"])
+    sizes = dict(min_size=extras["min_size_test"], max_size=extras["max_size_test"],
+                 prefetch="threads")
 
     total_t0 = time.time()
-    use_device_route = (dev.type == "cuda"
+    mesh = None
+    if args.n_devices and args.n_devices > 1:
+        from online_detection_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.n_devices, device=dev)
+    use_device_route = ((dev.type == "cuda" or mesh is not None)
                         and not args.save_RPN_detector_segmentation_features
                         and not args.load_RPN_detector_segmentation_features)
     extraction_end = None
@@ -116,13 +125,13 @@ def main(argv=None):
         state, _ = dpipe.harvest_dataset_device(
             torch.Generator(device=dev).manual_seed(1), params, train_ds, train_cfg, canvas,
             dcfg=det_cfg, output_dir=output_dir, batch_size=args.images_per_batch,
-            device=dev, **sizes)
+            device=dev, mesh=mesh, **sizes)
         extraction_end = time.time()
         holder = [state]  # hands the reservoirs over: freed stage by stage
         del state
         online = dpipe.train_online_modules_device(
             torch.Generator(device=dev).manual_seed(2), holder, train_cfg, output_dir,
-            device=dev)
+            device=dev, mesh=mesh)
         solver_end = time.time()
         if args.save_RPN_detector_segmentation_models:
             ckpt.save_online_models(output_dir, online)
@@ -168,7 +177,7 @@ def main(argv=None):
         params, online, test_ds, canvas, det_cfg, output_dir=output_dir,
         iou_thresholds=extras["iou_thresholds"], use_07_metric=extras["use_07_metric"],
         eval_segm_with_gt_bboxes=args.eval_segm_with_gt_bboxes,
-        batch_size=args.images_per_batch, device=dev, **sizes)
+        batch_size=args.images_per_batch, device=dev, mesh=mesh, **sizes)
     for k, v in results.items():
         if k.endswith("map_0.5") or k.endswith("map_0.7"):
             print(f"{k}: {v:.4f}")

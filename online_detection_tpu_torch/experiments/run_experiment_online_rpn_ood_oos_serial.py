@@ -16,7 +16,9 @@ the sampling and normalisation knobs. Run it as a module:
         --output_dir out [--CPU] [...]
 
 Without ``--CPU`` the run needs a CUDA card and raises before any work when
-there is none. ``--n_devices`` above 1 raises (ROADMAP.md §A item 10).
+there is none. ``--n_devices N`` (N > 1) splits each head's classes over a
+mesh of N cards (``parallel/mesh.py``); with ``--CPU``, over N virtual CPU
+entries.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ def parse_args(argv=None):
     parser.add_argument("--CPU", action="store_true",
                         help="Run on the CPU (plain PyTorch in place of the CUDA kernels)")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="More than 1 is not ported yet and raises")
+                        help="Split each head's classes over this many devices (more than 1; "
+                        "virtual CPU entries with --CPU); the slices run one after another, "
+                        "so this spreads memory, not time")
     parser.add_argument("--data_root", type=str, default="Data/datasets")
     parser.add_argument("--weights", type=str, default=None)
     return parser.parse_args(argv)
@@ -71,10 +75,11 @@ def main(argv=None):
     from online_detection_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cpu" if args.CPU else None)  # raises here without a card
+    mesh = None
     if args.n_devices and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1: training over a device mesh is not ported yet "
-            "(ROADMAP.md, section A, item 10)")
+        from online_detection_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.n_devices, device=dev)
 
     from online_detection_tpu_torch.experiments import _common
     from online_detection_tpu_torch.models.detector import OnlineModelSet
@@ -109,7 +114,7 @@ def main(argv=None):
     canvas = _common.dataset_canvas(train_ds, extras)
     t_total = time.time()
     hkw = dict(dcfg=det_cfg, output_dir=output_dir, min_size=extras["min_size_test"],
-               max_size=extras["max_size_test"], device=dev)
+               max_size=extras["max_size_test"], device=dev, prefetch="threads")
 
     def generator(seed):
         return torch.Generator(device=dev).manual_seed(seed)
@@ -134,7 +139,7 @@ def main(argv=None):
                                           canvas, **hkw)
                 rpn_head = h1["rpn"]
             online_rpn = pipe.train_rpn_module(generator(2), rpn_head, train_cfg, output_dir,
-                                               device=dev)
+                                               mesh=mesh, device=dev)
             if args.save_RPN_models:
                 ckpt.save_rpn_models(output_dir, online_rpn)
 
@@ -162,7 +167,7 @@ def main(argv=None):
         online_det = ckpt.load_detector_models(output_dir).to(dev)
     else:
         online_det = pipe.train_detector_module(generator(4), harvest2["det"], cfg2,
-                                                output_dir, device=dev)
+                                                output_dir, mesh=mesh, device=dev)
         if args.save_detector_models:
             ckpt.save_detector_models(output_dir, online_det)
 
@@ -171,7 +176,7 @@ def main(argv=None):
         online_mask = ckpt.load_segmentation_models(output_dir).to(dev)
     elif cfg2.with_segmentation and harvest2 is not None and "mask" in harvest2:
         online_mask = pipe.train_segmentation_module(generator(5), harvest2["mask"], cfg2,
-                                                     output_dir, device=dev)
+                                                     output_dir, mesh=mesh, device=dev)
         if args.save_segmentation_models:
             ckpt.save_segmentation_models(output_dir, online_mask)
 
@@ -186,7 +191,7 @@ def main(argv=None):
         params, online, test_ds, canvas, det_cfg, output_dir=output_dir,
         iou_thresholds=extras["iou_thresholds"], use_07_metric=extras["use_07_metric"],
         min_size=extras["min_size_test"], max_size=extras["max_size_test"],
-        eval_segm_with_gt_bboxes=args.eval_segm_with_gt_bboxes, device=dev)
+        eval_segm_with_gt_bboxes=args.eval_segm_with_gt_bboxes, device=dev, prefetch="threads")
     for k, v in results.items():
         if "map" in k:
             print(f"{k}: {v:.4f}")

@@ -91,7 +91,7 @@ def main(argv=None):
             harvest = pipe.harvest_dataset(
                 torch.Generator(device=dev).manual_seed(1), params, train_ds, train_cfg,
                 canvas, dcfg=det_cfg, output_dir=output_dir, min_size=extras["min_size_test"],
-                max_size=extras["max_size_test"], device=dev)
+                max_size=extras["max_size_test"], device=dev, prefetch="threads")
             if args.save_detector_segmentation_features:
                 ckpt.save_features(output_dir, harvest)
         online = pipe.train_online_modules(torch.Generator(device=dev).manual_seed(2), harvest,
@@ -107,7 +107,7 @@ def main(argv=None):
         params, online, test_ds, canvas, det_cfg, output_dir=output_dir,
         iou_thresholds=extras["iou_thresholds"], use_07_metric=extras["use_07_metric"],
         min_size=extras["min_size_test"], max_size=extras["max_size_test"],
-        eval_segm_with_gt_bboxes=args.eval_segm_with_gt_bboxes, device=dev)
+        eval_segm_with_gt_bboxes=args.eval_segm_with_gt_bboxes, device=dev, prefetch="threads")
     for k, v in results.items():
         if "map" in k:
             print(f"{k}: {v:.4f}")

@@ -117,6 +117,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``, a C entry point, with ``device`` the current
+    CUDA device and ``stream`` its current stream: an entry point launches on
+    the current device, so a tensor on another card would otherwise be read
+    by a kernel on the wrong one."""
+    import torch
+
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if status != 0:

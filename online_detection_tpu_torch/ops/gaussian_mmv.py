@@ -114,8 +114,8 @@ def split_tf32(t: torch.Tensor):
     fn = _build.load(_KERNEL).odt_split_tf32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    status = fn(t.data_ptr(), hi.data_ptr(), lo.data_ptr(), sq.data_ptr(), t.numel() // d, d,
-                torch.cuda.current_stream(t.device).cuda_stream)
+    status = _build.launch(fn, t.device, t.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                           sq.data_ptr(), t.numel() // d, d)
     _build.check(status, "odt_split_tf32")
     _build.LAUNCHES[_SPLIT] += 1
     return hi, lo, sq
@@ -151,11 +151,10 @@ def _mmv_cuda(x, centers, v, sigma, set_idx, g):
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     shared = x.dim() == 2
-    status = fn(
-        x.data_ptr(), n if shared else g * n, 0 if shared else n,
+    status = _build.launch(
+        fn, dev, x.data_ptr(), n if shared else g * n, 0 if shared else n,
         c_hi.data_ptr(), c_lo.data_ptr(), s * m, cs.data_ptr(),
         v.data_ptr(), set_idx.data_ptr(), out.data_ptr(), g, n, m, d, float(sigma),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(status, "odt_mmv_grouped")
     _build.LAUNCHES[_KERNEL] += 1

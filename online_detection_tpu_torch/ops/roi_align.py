@@ -140,9 +140,9 @@ def _launch(name: str, features, rois, pooled, spatial_scale):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    status = fn(features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c,
-                pooled, float(spatial_scale), _DTYPES[features.dtype],
-                torch.cuda.current_stream(features.device).cuda_stream)
+    status = _build.launch(fn, features.device, features.data_ptr(), rois.data_ptr(),
+                           out.data_ptr(), b, r, h, w, c, pooled, float(spatial_scale),
+                           _DTYPES[features.dtype])
     _build.check(status, f"odt_{name}")
     _build.LAUNCHES[name] += 1
     return out
@@ -195,8 +195,8 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, h: int, w: int,
     fn = getattr(_build.load(_BACKWARD), f"odt_{_BACKWARD}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    status = fn(grad.data_ptr(), rois.data_ptr(), out.data_ptr(), b, r, h, w, c, pooled,
-                float(spatial_scale), torch.cuda.current_stream(grad.device).cuda_stream)
+    status = _build.launch(fn, grad.device, grad.data_ptr(), rois.data_ptr(), out.data_ptr(),
+                           b, r, h, w, c, pooled, float(spatial_scale))
     _build.check(status, f"odt_{_BACKWARD}")
     _build.LAUNCHES[_BACKWARD] += 1
     return out

@@ -152,9 +152,8 @@ def _stem_cuda(x, w, scale, bias):
     fn = _build.load(_KERNEL).odt_stem_fused
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    status = fn(x.data_ptr(), wk.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-                out.data_ptr(), b, h, wd, _DTYPES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
+    status = _build.launch(fn, x.device, x.data_ptr(), wk.data_ptr(), sc.data_ptr(),
+                           bi.data_ptr(), out.data_ptr(), b, h, wd, _DTYPES[x.dtype])
     _build.check(status, "odt_stem_fused")
     _build.LAUNCHES[_KERNEL] += 1
     return out

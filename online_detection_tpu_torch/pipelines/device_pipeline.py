@@ -7,6 +7,13 @@ and only the trained models come out. The per-batch loop reads nothing back
 from the card (the port's NMS, inside the proposal stage, syncs once per
 sweep). Both entry points run with TF32 off (``utils.device.ieee_fp32``);
 only the conv trunk runs in bf16.
+
+With a ``mesh`` (``parallel/mesh.py``) the harvest runs the trunk (B2, the
+RPN, B4, res5) on each device's slice of the canvas batch and gathers its
+outputs on the mesh's first device, where the sampling stages and the
+reservoirs run as without one (so the harvest's draws and picks do not
+depend on the mesh); the training splits every head's classes and the
+grouped RLS over the devices.
 """
 
 from __future__ import annotations
@@ -38,13 +45,18 @@ from online_detection_tpu_torch.models.rpn import OnlineRPNModels
 from online_detection_tpu_torch.pipelines.online_pipeline import (
     OnlineTrainConfig,
     _fmt,
+    _entry_device,
     _StageClock,
     _write_result,
 )
 from online_detection_tpu_torch.solvers.falkon import FalkonModel
-from online_detection_tpu_torch.solvers.minibootstrap import MinibootstrapParams, train_chunk
+from online_detection_tpu_torch.solvers.minibootstrap import (
+    MinibootstrapParams,
+    center_uniforms,
+    train_classifiers_minibootstrap,
+)
 from online_detection_tpu_torch.solvers.rls import rls_fit_grouped
-from online_detection_tpu_torch.utils.device import ieee_fp32, resolve_device
+from online_detection_tpu_torch.utils.device import ieee_fp32
 from online_detection_tpu_torch.utils.device import sync as _sync
 from online_detection_tpu_torch.utils.device import to_device as _to_device
 from online_detection_tpu_torch.utils.draws import uniform
@@ -80,13 +92,26 @@ def _gate_chunk(chunk: HarvestChunk, valid: torch.Tensor) -> HarvestChunk:
 
 def _train_head_chunked(neg_pool: dacc.Pool, pos, pos_valid, params: MinibootstrapParams,
                         stats, iterations: int, batch_size: int, mode: str,
-                        chunk: Optional[int], generator=None) -> FalkonModel:
+                        chunk: Optional[int], generator=None, mesh=None) -> FalkonModel:
     """Minibootstrap a whole head a window of ``chunk`` classes at a time:
     split the window's negatives, train, release. The last window slides back
     to end at the last class; the classes it retrains are dropped from its
-    output."""
+    output.
+
+    The head's draws are made once, up front, in absolute class order: the
+    shuffle's uniforms [C, cap] ("shuffle" mode), then the Nystrom centers'
+    [C, I, 2, M]; each window slices its classes' rows, so neither the
+    window width nor the slide changes what a class learns. With ``mesh``
+    the window is rounded up to a mesh multiple and each window's classes
+    are split over the mesh's devices."""
     c = pos.shape[0]
-    chunk = c if not chunk or chunk <= 0 else min(chunk, c)
+    dev = pos.device
+    chunk = c if not chunk or chunk <= 0 else chunk
+    if mesh is not None:
+        chunk = -(-chunk // mesh.size) * mesh.size
+    chunk = min(chunk, c)
+    shuffle_u = uniform((c, neg_pool.capacity), generator, dev) if mode == "shuffle" else None
+    center_u = center_uniforms(c, iterations, params.m, generator, dev)
     parts = []
     lo = 0
     while lo < c:
@@ -95,15 +120,17 @@ def _train_head_chunked(neg_pool: dacc.Pool, pos, pos_valid, params: Minibootstr
         win = slice(lo_eff, lo_eff + chunk)
         sub = dacc.Pool(neg_pool.rows[win], neg_pool.counts[win])
         if mode == "shuffle":
-            neg, neg_valid = dacc.shuffle_split(sub, iterations, batch_size, generator)
+            neg, neg_valid = dacc.shuffle_split(sub, iterations, batch_size,
+                                                uniforms=shuffle_u[win])
         elif mode == "interleave":
             neg, neg_valid = dacc.interleave_split(sub, iterations, batch_size)
         else:  # "arrival": the segmentation pools
             neg, neg_valid = dacc.arrival_split(sub, iterations, batch_size)
-        (alpha, centers), exists, _ = train_chunk(pos[win], pos_valid[win], neg, neg_valid,
-                                                  params, stats, generator)
+        model = train_classifiers_minibootstrap(pos[win], pos_valid[win], neg, neg_valid,
+                                                params, stats=stats, mesh=mesh,
+                                                uniforms=center_u[win])
         del neg, neg_valid
-        parts.append((centers[drop:], alpha[drop:], exists[drop:]))
+        parts.append((model.centers[drop:], model.alpha[drop:], model.exists[drop:]))
         lo = lo_eff + chunk
     return FalkonModel(torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
                        torch.cat([p[2] for p in parts]), params.sigma)
@@ -123,13 +150,31 @@ def reservoir_spec(cfg: OnlineTrainConfig, hcfg: HarvestConfig, batch_size: int 
         with_rpn=cfg.with_rpn, with_mask=cfg.with_segmentation, batch_size=batch_size)
 
 
+def _sharded_trunk(mesh, params, online_rpn, anchors, dcfg: DetectorConfig,
+                   with_mask_features: bool):
+    """``harvest_trunk`` over a canvas batch split across ``mesh``: each
+    device runs its slice with its replica of the network, and the outputs
+    are gathered on the mesh's first device."""
+
+    def shard(images, sizes, gt_boxes, gt_valid, p, r, a):
+        return harvest_trunk(p, r, a, images, sizes, gt_boxes, gt_valid, dcfg,
+                             with_mask_features)
+
+    def run(images, sizes, gt_boxes, gt_valid):
+        return mesh.map(shard, (images, sizes, gt_boxes, gt_valid),
+                        (params, online_rpn, anchors))
+
+    return run
+
+
 def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset,
                            cfg: OnlineTrainConfig, canvas_hw: Tuple[int, int],
                            online_rpn: Optional[OnlineRPNModels] = None,
                            dcfg: DetectorConfig = DetectorConfig(), gt_cap: int = 20,
                            output_dir: Optional[str] = None, min_size: int = 600,
                            max_size: int = 1333, batch_size: int = 1,
-                           device=None) -> Tuple[dacc.DeviceReservoirs, Dict]:
+                           device=None, mesh=None, prefetch: Optional[str] = None
+                           ) -> Tuple[dacc.DeviceReservoirs, Dict]:
     """Streams ``dataset`` through the frozen network into reservoirs on the
     card, ``batch_size`` canvases at a time. Returns (reservoirs, meta).
 
@@ -137,8 +182,11 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
     (``harvest_annotation(i)`` or ``get_annotation(i)`` with ``boxes`` and
     1-based ``labels``) and, for the segmentation head, ``load_masks(i,
     anno)``. ``params`` (and ``online_rpn``) must live on ``device``, which
-    defaults to the card. Draws come from ``generator``."""
-    dev = resolve_device(device)
+    defaults to the card (the mesh's first device with ``mesh``). Draws come
+    from ``generator``. ``mesh``: the canvas batch is rounded up to a mesh
+    multiple and the trunk runs on each device's slice. ``prefetch``: the
+    ``CanvasLoader`` mode (None, "threads" or "native")."""
+    dev = _entry_device(device, mesh)
     if params.rpn.conv_w.device.type != dev.type:
         raise ValueError(f"params are on {params.rpn.conv_w.device}; move them to {dev}")
     with ieee_fp32(), torch.inference_mode():
@@ -152,6 +200,11 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
         anchors_np = grid_anchors(ch // 16, cw // 16)
         anchors = torch.from_numpy(anchors_np).to(dev)
         b = max(1, batch_size)
+        trunk_fn = None
+        if mesh is not None:
+            b = -(-b // mesh.size) * mesh.size  # the batch tiles the mesh
+            trunk_fn = _sharded_trunk(mesh, params, online_rpn, anchors, dcfg,
+                                      cfg.with_segmentation)
         state = dacc.init_reservoirs(**reservoir_spec(cfg, hcfg, b), device=dev)
 
         def host_item(loader, i):
@@ -169,8 +222,10 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
                 gm = project_masks_for_image(dataset.load_masks(i, anno), gb[:g], scale, gt_cap)
             return canvas, (sw, sh), gb, gl, gv, gm, anchor_visibility(anchors_np, (sw, sh))
 
-        _LOG.info("harvest (device reservoirs): %d images, batch %d, on %s", n_images, b, dev)
-        with CanvasLoader(dataset, canvas_hw, min_size, max_size) as loader:
+        _LOG.info("harvest (device reservoirs): %d images, batch %d, on %s, mesh %s, "
+                  "prefetch %s", n_images, b, dev, None if mesh is None else mesh.size,
+                  prefetch)
+        with CanvasLoader(dataset, canvas_hw, min_size, max_size, prefetch=prefetch) as loader:
             for lo in range(0, n_images, b):
                 items = [host_item(loader, i) for i in range(lo, min(lo + b, n_images))]
                 n_real = len(items)
@@ -183,8 +238,11 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
                 gbs, gls, gvs, viss = stack(2), stack(3), stack(4), stack(6)
                 gms = stack(5) if cfg.with_segmentation else None
                 img_valid = torch.arange(b, device=dev) < n_real
-                trunk = harvest_trunk(params, online_rpn, anchors, stack(0), sizes, gbs, gvs,
-                                      dcfg, cfg.with_segmentation)
+                if trunk_fn is None:
+                    trunk = harvest_trunk(params, online_rpn, anchors, stack(0), sizes, gbs,
+                                          gvs, dcfg, cfg.with_segmentation)
+                else:
+                    trunk = trunk_fn(stack(0), sizes, gbs, gvs)
                 chunks = harvest_chunks(*trunk, anchors, viss, sizes, gbs, gls, gvs, gms, hcfg,
                                         cfg.with_rpn, generator)
                 state = dacc.accumulate_batch(state, chunks, img_valid, cfg.num_classes)
@@ -213,17 +271,20 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
 
 def train_online_modules_device(generator: Optional[torch.Generator], state,
                                 cfg: OnlineTrainConfig, output_dir: Optional[str] = None,
-                                device=None, timings: Optional[Dict[str, float]] = None
-                                ) -> OnlineModelSet:
+                                device=None, timings: Optional[Dict[str, float]] = None,
+                                mesh=None) -> OnlineModelSet:
     """Fits the on-line RPN (FALKON + RLS), detector (RLS + FALKON) and
     segmenter (FALKON) from the reservoirs, on ``device`` (the card by
-    default), where ``state`` must live.
+    default; the mesh's first device with ``mesh``), where ``state`` must
+    live.
 
     ``state``: the reservoirs, or a one-element list holding them; the list
     form hands them over, so each pool is freed once its stage has used it.
     ``timings``, when given, receives each stage's seconds (the stage ends in
-    a device sync)."""
-    dev = resolve_device(device)
+    a device sync). ``mesh``: every head's minibootstrap and the grouped RLS
+    run class-sharded over its devices; the models are gathered on its first
+    device."""
+    dev = _entry_device(device, mesh)
     if isinstance(state, list):
         state = state.pop()  # take the only reference
     if state.det_neg.rows.device.type != dev.type:
@@ -247,7 +308,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
                 state.rpn_neg, pos, pos_valid, mb(cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam),
                 stats_rpn, cfg.iterations, cfg.batch_size,
                 "shuffle" if cfg.rpn_shuffle_negatives else "interleave",
-                cfg.solver_class_chunk, generator)
+                cfg.solver_class_chunk, generator, mesh)
             state = state.replace(rpn_neg=None)
             _write_result(output_dir, "RPN's Online Classifier training time: {} \n".format(
                 clock.done("rpn_falkon", t0)))
@@ -258,7 +319,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             rls = rls_fit_grouped(zscore(pos, stats_rpn).reshape(-1, pos.shape[-1]),
                                   state.rpn_coxy_y.rows.reshape(-1, 4), cls1.reshape(-1),
                                   pos_valid.reshape(-1).float(), a_cls, cfg.rpn_reg_lam,
-                                  device_solve=True)
+                                  device_solve=True, mesh=mesh)
             _write_result(output_dir, "RPN's Online Region Refiner training time: {} \n"
                           .format(clock.done("rpn_rls", t0)))
             online_rpn = OnlineRPNModels(models, rls, stats_rpn)
@@ -296,7 +357,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
             else coxy_x
         det_rls = rls_fit_grouped(reg_x, coxy_y, coxy_c, coxy_valid.float(), cfg.num_classes,
-                                  cfg.det_reg_lam, device_solve=True)
+                                  cfg.det_reg_lam, device_solve=True, mesh=mesh)
         _write_result(output_dir, "Detector's Online Region Refiner training time: {} \n \n"
                       .format(clock.done("det_rls", t0)))
         t0 = clock.start()
@@ -304,7 +365,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             state.det_neg, pos, pos_valid, mb(cfg.det_m, cfg.det_sigma, cfg.det_lam), stats_det,
             cfg.iterations, cfg.batch_size,
             "shuffle" if cfg.shuffle_negatives else "interleave", cfg.solver_class_chunk,
-            generator)
+            generator, mesh)
         pos = pos_valid = det_pos_pool = packed = coxy_x = coxy_y = coxy_c = reg_x = None
         state = state.replace(det_neg=None, det_pos=None, det_coxy=None)
         _write_result(output_dir, "Detector's Online Classifier training time: {} \n".format(
@@ -322,7 +383,7 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
             seg_falkon = _train_head_chunked(
                 state.mask_neg, state.mask_pos.rows, state.mask_pos.valid_mask(),
                 mb(cfg.segm_m, cfg.segm_sigma, cfg.segm_lam), stats_seg, seg_iters,
-                cfg.segm_batch_size, "arrival", cfg.solver_class_chunk, generator)
+                cfg.segm_batch_size, "arrival", cfg.solver_class_chunk, generator, mesh)
             state = state.replace(mask_pos=None, mask_neg=None)
             _write_result(output_dir, "Online Segmentation training time: {} \n".format(
                 clock.done("segm_falkon", t0)))

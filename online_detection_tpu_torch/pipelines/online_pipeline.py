@@ -21,10 +21,14 @@ solvers run with TF32 off (``utils.device.ieee_fp32``).
 through ``detect_batched`` on the card, one device-to-host copy of the
 detections and masks a batch, predictions in image coordinates, then
 ``voc_eval.evaluate`` on the host.
+
+With a ``mesh`` (``parallel/mesh.py``) the training stages split each head's
+classes over its devices, and ``run_inference`` each canvas batch.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -138,11 +142,14 @@ def _fmt(sec: float) -> str:
     return "{}min:{}s".format(int(sec / 60), round(sec % 60))
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "class-sharded training over a device mesh is not ported "
-            "(ROADMAP.md, section A, item 10)")
+def _entry_device(device, mesh) -> torch.device:
+    """An entry point's device: ``device``, or the mesh's first device (which
+    ``device``, when given, must match in type)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != mesh.first.type:
+        raise ValueError(f"device {device} is not the mesh's first device {mesh.first}")
+    return resolve_device(mesh.first)
 
 
 class _StageClock:
@@ -248,7 +255,7 @@ def harvest_dataset(generator: Optional[torch.Generator], params, dataset,
                     online_rpn: Optional[OnlineRPNModels] = None,
                     dcfg: DetectorConfig = DetectorConfig(), gt_cap: int = 20,
                     output_dir: Optional[str] = None, min_size: int = 600,
-                    max_size: int = 1333, device=None) -> Dict:
+                    max_size: int = 1333, device=None, prefetch: Optional[str] = None) -> Dict:
     """One streaming pass over ``dataset`` -> solver-ready host arrays (the
     ``finalize`` dict of ``HarvestAccumulator``, plus ``extraction_time``,
     ``finalize_time`` and ``host_bytes``, what the per-image copies moved).
@@ -257,7 +264,8 @@ def harvest_dataset(generator: Optional[torch.Generator], params, dataset,
     default; ``params`` and ``online_rpn`` must live there), with draws from
     ``generator``. ``dataset`` has ``__len__``, ``load_image(i)``, an
     annotation (``harvest_annotation(i)`` or ``get_annotation(i)``) and, for
-    the segmentation head, ``load_masks(i, anno)``."""
+    the segmentation head, ``load_masks(i, anno)``. ``prefetch``: the
+    ``CanvasLoader`` mode (None, "threads" or "native")."""
     dev = resolve_device(device)
     if params.rpn.conv_w.device.type != dev.type:
         raise ValueError(f"params are on {params.rpn.conv_w.device}; move them to {dev}")
@@ -271,7 +279,7 @@ def harvest_dataset(generator: Optional[torch.Generator], params, dataset,
     anchors = torch.from_numpy(anchors_np).to(dev)
 
     acc = HarvestAccumulator(cfg.num_anchor_classes, cfg.num_classes)
-    with CanvasLoader(dataset, canvas_hw, min_size, max_size) as loader:
+    with CanvasLoader(dataset, canvas_hw, min_size, max_size, prefetch=prefetch) as loader:
         for i in range(n_images):
             anno = harvest_annotation(dataset, i)
             canvas, scale, (sw, sh) = loader.get(i)
@@ -329,13 +337,15 @@ def _pools(head: Dict, dev: torch.device):
 
 
 def _minibootstrap(head: Dict, dev, stats: FeatureStats, m: int, sigma: float, lam: float,
-                   cfg: OnlineTrainConfig, generator):
+                   cfg: OnlineTrainConfig, generator, mesh=None):
     """All classes of a head in one chunk, as the JAX package's host route
-    trains them; the pools are z-scored inside the solver's cache."""
+    trains them (split over ``mesh``'s devices with one); the pools are
+    z-scored inside the solver's cache. Every class's draws are made up
+    front, in class order (``train_classifiers_minibootstrap``)."""
     params = MinibootstrapParams(m=m, sigma=sigma, lam=lam, hard_thresh=cfg.hard_thresh,
                                  easy_thresh=cfg.easy_thresh)
     return train_classifiers_minibootstrap(*_pools(head, dev), params, stats=stats,
-                                           generator=generator)
+                                           generator=generator, mesh=mesh)
 
 
 @ieee_fp32()
@@ -343,15 +353,16 @@ def _minibootstrap(head: Dict, dev, stats: FeatureStats, m: int, sigma: float, l
 def train_rpn_module(generator: Optional[torch.Generator], rpn: Dict, cfg: OnlineTrainConfig,
                      output_dir: Optional[str] = None, seed: int = 0, mesh=None, device=None,
                      timings: Optional[Dict[str, float]] = None) -> OnlineRPNModels:
-    """Stage 2: per-anchor FALKON classifiers + RLS refiners of the O-RPN."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    """Stage 2: per-anchor FALKON classifiers + RLS refiners of the O-RPN.
+    ``mesh``: the anchor classes are split over its devices, whose first
+    must be ``device``."""
+    dev = _entry_device(device, mesh)
     clock = _StageClock(dev, timings)
     rng = np.random.default_rng(seed)
     stats_rpn = _head_stats(rpn, rng, cfg.pos_fraction_feat_stats, dev)
     t0 = clock.start()
     models = _minibootstrap(rpn, dev, stats_rpn, cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam, cfg,
-                            generator)
+                            generator, mesh)
     _write_result(output_dir, "RPN's Online Classifier training time: {} \n".format(
         clock.done("rpn_falkon", t0)))
     # RPN refiners always train on z-scored COXY (run_..._oos.py:114)
@@ -372,9 +383,8 @@ def train_detector_module(generator: Optional[torch.Generator], det: Dict,
                           seed: int = 0, mesh=None, device=None,
                           timings: Optional[Dict[str, float]] = None) -> OnlineDetectorModels:
     """Stage 3: RLS refiners, then per-class FALKON classifiers of the
-    detector."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    detector (split over ``mesh``'s devices with one)."""
+    dev = _entry_device(device, mesh)
     clock = _StageClock(dev, timings)
     rng = np.random.default_rng(seed)
     coxy = det["coxy"]
@@ -394,7 +404,7 @@ def train_detector_module(generator: Optional[torch.Generator], det: Dict,
                   .format(clock.done("det_rls", t0)))
     t0 = clock.start()
     det_falkon = _minibootstrap(det, dev, stats_det, cfg.det_m, cfg.det_sigma, cfg.det_lam,
-                                cfg, generator)
+                                cfg, generator, mesh)
     _write_result(output_dir, "Detector's Online Classifier training time: {} \n".format(
         clock.done("det_falkon", t0)))
     return OnlineDetectorModels(falkon=det_falkon, rls=det_rls, stats=stats_det)
@@ -406,15 +416,15 @@ def train_segmentation_module(generator: Optional[torch.Generator], seg: Dict,
                               cfg: OnlineTrainConfig, output_dir: Optional[str] = None,
                               seed: int = 0, mesh=None, device=None,
                               timings: Optional[Dict[str, float]] = None) -> OnlineMaskModels:
-    """Stage 4: per-pixel FALKON classifiers of the segmentation head."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    """Stage 4: per-pixel FALKON classifiers of the segmentation head (split
+    over ``mesh``'s devices with one)."""
+    dev = _entry_device(device, mesh)
     clock = _StageClock(dev, timings)
     rng = np.random.default_rng(seed)
     stats_seg = _head_stats(seg, rng, cfg.pos_fraction_feat_stats, dev)
     t0 = clock.start()
     seg_falkon = _minibootstrap(seg, dev, stats_seg, cfg.segm_m, cfg.segm_sigma, cfg.segm_lam,
-                                cfg, generator)
+                                cfg, generator, mesh)
     _write_result(output_dir, "Online Segmentation training time: {} \n".format(
         clock.done("segm_falkon", t0)))
     return OnlineMaskModels(falkon=seg_falkon, stats=stats_seg)
@@ -427,10 +437,10 @@ def train_online_modules(generator: Optional[torch.Generator], harvest: Dict,
     """Stages 2-4 on ``device`` (the card by default) from the host arrays of
     ``harvest_dataset`` or ``load_features``; draws from ``generator``.
     ``timings``, when given, receives each stage's seconds (each clock
-    starts and ends after a device sync)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    kw = dict(output_dir=output_dir, seed=seed, device=dev, timings=timings)
+    starts and ends after a device sync). ``mesh``: each head's classes are
+    split over its devices."""
+    dev = _entry_device(device, mesh)
+    kw = dict(output_dir=output_dir, seed=seed, device=dev, timings=timings, mesh=mesh)
     online_rpn = None
     if cfg.with_rpn and "rpn" in harvest:
         online_rpn = train_rpn_module(generator, harvest["rpn"], cfg, **kw)
@@ -458,6 +468,22 @@ def _to_host(dets, masks):
     return boxes, scores, labels, valid, mask_np
 
 
+def _sharded_detect(mesh, params, online: OnlineModelSet, anchors):
+    """``detect_batched`` over a canvas batch split across ``mesh``: each
+    device runs its slice with its replicas of the network and the models;
+    the detections and masks are gathered on the mesh's first device."""
+
+    def run(images, sizes, dcfg, with_masks, gt_boxes=None, gt_labels=None, gt_valid=None):
+        def shard(im, sz, gb, gl, gv, p, o, a):
+            return detect_batched(p, o, a, im, sz, dcfg, with_masks, gb, gl, gv,
+                                  device=im.device)
+
+        return mesh.map(shard, (images, sizes, gt_boxes, gt_labels, gt_valid),
+                        (params, online, anchors))
+
+    return run
+
+
 def run_inference(
     params,
     online: OnlineModelSet,
@@ -474,6 +500,8 @@ def run_inference(
     gt_cap: int = 20,
     batch_size: int = 1,
     device=None,
+    mesh=None,
+    prefetch: Optional[str] = None,
 ):
     """Test loop + VOC evaluation (``engine/inference.py:266-353`` +
     evaluation dispatch). Returns (results dict, predictions).
@@ -489,12 +517,20 @@ def run_inference(
     image and the padding's results are dropped. The JAX package's
     ``roi_chunk`` switch at large batches has no counterpart: it bounds an
     XLA RoIAlign intermediate, and the port's RoIAlign kernel keeps none.
+    ``mesh``: the batch is rounded up to a mesh multiple, and each device
+    runs ``detect_batched`` on its slice with its replica of the network and
+    the models (the mesh's first device is ``device``). ``prefetch``: the
+    ``CanvasLoader`` mode (None, "threads" or "native").
     """
-    dev = resolve_device(device)
+    dev = _entry_device(device, mesh)
     ch, cw = canvas_hw
     anchors = torch.from_numpy(grid_anchors(ch // 16, cw // 16)).to(dev)
     with_masks = with_masks and online.mask is not None
     b = max(1, batch_size)
+    detect = functools.partial(detect_batched, params, online, anchors, device=dev)
+    if mesh is not None:
+        b = -(-b // mesh.size) * mesh.size
+        detect = _sharded_detect(mesh, params, online, anchors)
 
     logger = setup_logger("online_detection_tpu_torch.inference", output_dir)
     logger.info(
@@ -502,7 +538,7 @@ def run_inference(
         len(dataset), with_masks, eval_segm_with_gt_bboxes, b,
     )
     inference_timer = Timer()
-    loader_ctx = CanvasLoader(dataset, canvas_hw, min_size, max_size)
+    loader_ctx = CanvasLoader(dataset, canvas_hw, min_size, max_size, prefetch=prefetch)
     trace_ctx = profile_trace(os.environ.get("ODTPU_PROFILE_DIR"))
 
     n_images = len(dataset)
@@ -538,8 +574,7 @@ def run_inference(
                     gls[k, :g] = anno.labels[:g]
                     gvs[k, :g] = True
                 gt = tuple(torch.from_numpy(a).to(dev) for a in (gbs, gls, gvs))
-            dets_b, mask_b, _, _ = detect_batched(params, online, anchors, canvases, sizes,
-                                                  dcfg, with_masks, *gt, device=dev)
+            dets_b, mask_b, _, _ = detect(canvases, sizes, dcfg, with_masks, *gt)
             boxes_b, scores_b, labels_b, valid_b, mask_b = _to_host(
                 dets_b, mask_b if with_masks else None)
             inference_timer.toc()

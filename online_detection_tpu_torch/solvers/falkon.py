@@ -70,11 +70,12 @@ def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
 
 
 def select_nystrom_centers(is_pos: torch.Tensor, valid: torch.Tensor, m: int,
-                           generator=None, draws=None) -> torch.Tensor:
+                           generator=None, draws=None, uniforms=None) -> torch.Tensor:
     """[..., m] row indices: at most m // 2 positives (all of them if fewer,
     else drawn with replacement), the rest negatives likewise; leftover
     slots repeat the first choice. is_pos broadcasts against valid [..., N].
-    ``draws``: (positive, negative) index draws [..., m] each."""
+    ``draws``: (positive, negative) index draws [..., m] each; ``uniforms``
+    [..., 2, m]: the uniforms those index draws are made from."""
     n = valid.shape[-1]
     pos_valid = is_pos & valid
     neg_valid = ~is_pos & valid
@@ -85,8 +86,9 @@ def select_nystrom_centers(is_pos: torch.Tensor, valid: torch.Tensor, m: int,
     n_pos_sel = n_pos.clamp(max=half)
     n_neg_sel = torch.minimum(n_neg, m - n_pos_sel)
     pd, nd = (None, None) if draws is None else draws
-    rand_pos = randint_below(n_pos.clamp(min=1), m, generator, pd)
-    rand_neg = randint_below(n_neg.clamp(min=1), m, generator, nd)
+    pu, nu = (None, None) if uniforms is None else uniforms.unbind(-2)
+    rand_pos = randint_below(n_pos.clamp(min=1), m, generator, pd, pu)
+    rand_neg = randint_below(n_neg.clamp(min=1), m, generator, nd, nu)
 
     slot = torch.arange(m, device=valid.device)
     pos_take = torch.where(n_pos > half, rand_pos, torch.minimum(slot, (n_pos - 1).clamp(min=0)))

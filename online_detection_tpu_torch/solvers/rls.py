@@ -132,9 +132,7 @@ def _compact_class_blocks(x, y, cls1, w, num_classes: int, cap: int):
 def _gram_stats_grouped(x, y, cls1, w, num_classes: int):
     """Per-class statistics from a shared row buffer, one masked pass per
     class (x [N, d], y [N, 4], cls1 [N] 1-based, w [N])."""
-    stats = [_gram_stats(x[None], y[None], (w * (cls1.long() == c + 1))[None])
-             for c in range(num_classes)]
-    return tuple(torch.cat([s[k] for s in stats]) for k in range(5))
+    return _masked_stats(x, y, [w * (cls1.long() == c + 1) for c in range(num_classes)])
 
 
 def _device_solve_from_stats(g, b, sum_y, yty, n, lam: float):
@@ -188,8 +186,44 @@ def _device_solve_from_stats(g, b, sum_y, yty, n, lam: float):
     return beta, t_dev, t_inv_dev, mu, exists, mean_losses
 
 
+def _masked_stats(x, y, wc):
+    """Per-class statistics from the shared rows x [N, d], y [N, 4] under
+    per-class weights wc [K, N] (the one-hot labels times the validity), one
+    masked pass per class."""
+    stats = [_gram_stats(x[None], y[None], w[None]) for w in wc]
+    return tuple(torch.cat([s[k] for s in stats]) for k in range(5))
+
+
+def _rls_fit_sharded(x, y, cls1, w, num_classes: int, lam: float, mesh) -> RLSModel:
+    """Class-sharded Grams and solves (``device_solve`` on a mesh): the class
+    axis padded to a mesh multiple, each device its slice, the models
+    gathered on the mesh's first device. The classes' rows are compacted
+    into blocks when the blocks are shorter than the row buffer (each row
+    then enters one class's Gram); otherwise each device masks the whole
+    buffer, replicated, for each of its classes. The statistics are the
+    unsharded ones either way."""
+    cp = -(-num_classes // mesh.size) * mesh.size
+    cap = int(_class_counts(cls1, w, num_classes).max())
+    n = x.shape[0]
+    solved = None
+    if cap > 0:
+        capb = min(n, max(256, 1 << (cap - 1).bit_length()))
+        if cp * capb * (x.shape[1] + 4) * 4 <= _BLOCK_BYTES_LIMIT and capb < n:
+            blocks = _compact_class_blocks(x, y, cls1, w, cp, capb)
+            solved = mesh.map(lambda *b: _device_solve_from_stats(*_gram_stats(*b), lam),
+                              blocks)
+    if solved is None:
+        onehot = cls1.long()[None, :] == torch.arange(1, cp + 1, device=x.device)[:, None]
+        wc = onehot.float() * w.float()[None, :]  # [Cp, N]; padded classes zero
+        solved = mesh.map(lambda wk, xk, yk: _device_solve_from_stats(
+            *_masked_stats(xk, yk, wk), lam), (wc,), (x, y))
+    beta, t, t_inv, mu, exists, mean_losses = (v[:num_classes] for v in solved)
+    return RLSModel(beta, t_inv, t, mu, exists, mean_losses)
+
+
 def rls_fit_grouped(x: torch.Tensor, y: torch.Tensor, cls1: torch.Tensor, w: torch.Tensor,
-                    num_classes: int, lam: float, device_solve: bool = False) -> RLSModel:
+                    num_classes: int, lam: float, device_solve: bool = False,
+                    mesh=None) -> RLSModel:
     """All refiners from a shared row buffer: x [N, d], y [N, 4], cls1 [N]
     1-based labels, w [N] validity.
 
@@ -198,7 +232,11 @@ def rls_fit_grouped(x: torch.Tensor, y: torch.Tensor, cls1: torch.Tensor, w: tor
     each class's rows into blocks, so each row enters one class's Gram
     instead of being masked into all of them; it reads the largest class
     count to size them (one host read), and takes the masked pass where
-    the blocks would not pay. The statistics are the same either way."""
+    the blocks would not pay. The statistics are the same either way.
+    ``mesh`` (with ``device_solve``): the Grams and the solves run
+    class-sharded over the mesh's devices."""
+    if mesh is not None and device_solve:
+        return _rls_fit_sharded(x, y, cls1, w, num_classes, lam, mesh)
     if not device_solve:
         return _solve_from_stats(*_gram_stats_grouped(x, y, cls1, w, num_classes), lam)
     stats = None

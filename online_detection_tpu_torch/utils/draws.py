@@ -22,12 +22,14 @@ def uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor
 
 
 def randint_below(hi: torch.Tensor, n: int, generator: Optional[torch.Generator],
-                  draws=None) -> torch.Tensor:
+                  draws=None, uniforms=None) -> torch.Tensor:
     """[..., n] int64 draws uniform in [0, hi) for hi [..., 1] >= 1, or
-    ``draws`` as given when not None."""
+    ``draws`` as given when not None; ``uniforms`` [..., n] in [0, 1) stand
+    in for the generator's."""
     if draws is not None:
         return torch.as_tensor(draws, device=hi.device).long()
-    u = uniform(hi.shape[:-1] + (n,), generator, hi.device)
+    u = uniform(hi.shape[:-1] + (n,), generator, hi.device) if uniforms is None else \
+        torch.as_tensor(uniforms, device=hi.device)
     return torch.minimum((u * hi).long(), hi - 1)
 
 

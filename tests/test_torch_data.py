@@ -62,6 +62,19 @@ def test_project_masks_for_image_matches_jax(rng):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("hw", [(1, 7), (2, 2), (37, 53), (600, 800)])
+def test_mask_rows_equal_the_blas_product(rng, hw):
+    """The projection's first product, taken from the two rows each output
+    row reads, is the BLAS product bit for bit, boxes past the mask's edges
+    and on whole pixels included."""
+    h, w = hw
+    mask = (rng.uniform(size=(h, w)) < 0.4).astype(np.float32)
+    for y1, y2 in [(-5.0, h + 5.0), (0.0, h - 1.0), (h - 1.0, h - 1.0),
+                   tuple(sorted(rng.uniform(-3, h + 3, 2)))]:
+        wy = mask_project._axis_weights(y1, max(y2 - y1 + 1.0, 1.0), h, 14)
+        np.testing.assert_array_equal(mask_project._rows(wy, mask), wy @ mask)
+
+
 @pytest.mark.parametrize("straddle", [0.0, 10.0, -1.0])
 def test_anchor_visibility_matches_jax(straddle):
     a = anchors.grid_anchors(4, 6)

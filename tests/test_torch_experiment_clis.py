@@ -208,7 +208,8 @@ def test_config_resolves_as_resolve_config(tmp_path):
 def test_clis_without_cpu_flag_raise_before_any_work(monkeypatch, tmp_path):
     """Without ``--CPU`` the CLIs target the card; on a host with no card they
     raise before they read a config or make their output directory. The
-    serial CLI's ``--n_devices`` above 1 raises as the flagship's does."""
+    serial CLI's ``--n_devices`` above 1 builds its mesh (of virtual CPU
+    entries with ``--CPU``) before any work, as the flagship's does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     touched = []
     monkeypatch.setattr(_common, "resolve_config", lambda *a: touched.append(a))
@@ -219,5 +220,16 @@ def test_clis_without_cpu_flag_raise_before_any_work(monkeypatch, tmp_path):
             main(["--output_dir", str(out)] + extra)
     assert touched == [] and not out.exists()
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    from online_detection_tpu_torch.parallel import mesh as mesh_mod
+
+    meshes = []
+
+    def no_mesh(n_devices, **kw):
+        meshes.append((n_devices, str(kw.get("device"))))
+        raise LookupError("mesh asked for")
+
+    monkeypatch.setattr(mesh_mod, "make_mesh", no_mesh)
+    monkeypatch.setattr(_common, "resolve_config", lambda *a: touched.append(a))
+    with pytest.raises(LookupError, match="mesh asked for"):
         p_serial.main(["--output_dir", str(out), "--CPU", "--n_devices", "2"])
+    assert meshes == [(2, "cpu")] and touched == [] and not out.exists()

@@ -117,12 +117,28 @@ def test_result_lines_match_the_jax_cli(runs):
     assert sum(ln.startswith("Detection mAP50") for ln in port) == len(MODES)
 
 
-def test_unported_options_raise(tmp_path):
-    """``--n_devices`` above 1 raises; a weights file, named by ``--weights``
-    or by a MODEL.WEIGHT that resolves to it, is loaded."""
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """``--n_devices`` above 1 builds a mesh of that many devices (virtual
+    CPU entries with ``--CPU``) where the JAX CLI builds its mesh, once the
+    datasets, the network and the canvas are known; a weights file, named
+    by ``--weights`` or by a MODEL.WEIGHT that resolves to it, is loaded."""
+    from online_detection_tpu_torch.parallel import mesh as mesh_mod
+
     base = ["--output_dir", str(tmp_path), "--CPU"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(base + ["--n_devices", "2"])
+    asked = []
+
+    def no_mesh(n_devices, **kw):
+        asked.append((n_devices, str(kw.get("device"))))
+        raise LookupError("mesh asked for")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(mesh_mod, "make_mesh", no_mesh)
+        mp.setattr(_common, "make_dataset", lambda *a: None)
+        mp.setattr(_common, "load_params", lambda *a: torch.nn.Linear(1, 1))
+        mp.setattr(_common, "dataset_canvas", lambda *a: (128, 192))
+        with pytest.raises(LookupError, match="mesh asked for"):
+            cli.main(base + ["--n_devices", "2"])
+    assert asked == [(2, "cpu")]
     tree = r50_narrow_tree()
     pkl = write_pkl(tmp_path / "model.pkl", tree)
     want = params_from_jax(tree)

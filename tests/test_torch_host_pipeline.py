@@ -445,6 +445,10 @@ def test_host_route_result_lines_match_jax(host_route):
 
 
 def test_host_route_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pipe.train_online_modules(None, {}, pipe.OnlineTrainConfig(), mesh=object(),
-                                  device="cpu")
+    """The host route trains on a mesh now; a mesh whose first device is
+    not the ``device`` asked for raises before any work."""
+    from online_detection_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="not the mesh's first device"):
+        pipe.train_online_modules(None, {}, pipe.OnlineTrainConfig(),
+                                  mesh=Mesh(devices=["cpu"]), device="cuda")

@@ -80,6 +80,9 @@ _STAGE_MODULES = {
     "online_detection_tpu_torch.experiments.visualize_masks_online_segmentation": "PIL",
     "online_detection_tpu_torch.data.ho3d_to_icwt": "PIL",
     "online_detection_tpu_torch.utils.flops": None,
+    "online_detection_tpu_torch.parallel.mesh": None,
+    "online_detection_tpu_torch.utils.native_io": None,
+    "online_detection_tpu_torch.data.loader": "PIL",
 }
 
 

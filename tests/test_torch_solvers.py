@@ -167,6 +167,56 @@ def test_train_classifiers_minibootstrap_scores_match_jax(rng):
     np.testing.assert_allclose(s_got, s_want, atol=1e-3)
 
 
+def _drawn_pools(rng, c, p_cap=10, n_iter=2, b=12, d=8):
+    """Pools above the center quotas (10 positives > M/2, 24 negatives), so
+    every update draws its Nystrom centers."""
+    pos = rng.normal(size=(c, p_cap, d)).astype(np.float32) + 1.0
+    neg = rng.normal(size=(c, n_iter, b, d)).astype(np.float32) - 1.0
+    return pos, np.ones((c, p_cap), bool), neg, np.ones((c, n_iter, b), bool)
+
+
+def test_class_chunk_does_not_change_drawn_models(rng):
+    """Fault C4: each class's center draws are its own rows of one up-front
+    block, so the chunk width changes no score (it moved them by 0.76 when
+    each chunk drew from the shared generator in turn)."""
+    pos, pv, neg, nv = (_t(a) for a in _drawn_pools(rng, 6))
+    params = mb.MinibootstrapParams(m=8, sigma=3.0, lam=1e-2)
+    probe = _t(rng.normal(size=(32, 8)).astype(np.float32))
+    scores = {}
+    for chunk in (None, 2, 3):
+        model = mb.train_classifiers_minibootstrap(
+            pos, pv, neg, nv, params, class_chunk=chunk,
+            generator=torch.Generator().manual_seed(5))
+        scores[chunk] = f.falkon_predict_classes(model, probe).numpy()
+    for chunk in (2, 3):
+        np.testing.assert_allclose(scores[chunk], scores[None], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["shuffle", "interleave"])
+def test_head_window_slide_does_not_change_drawn_models(rng, mode):
+    """Fault C4 on the device route: 21 classes in windows of 8, whose last
+    window slides back over classes 13-15, train the models of one window
+    of 21 (the shuffle's uniforms and the centers' are drawn per class, up
+    front)."""
+    from online_detection_tpu_torch.engine import device_accumulate as dacc
+    from online_detection_tpu_torch.pipelines.device_pipeline import _train_head_chunked
+
+    c, n_iter, b, d = 21, 2, 12, 8
+    pos, pv, neg, _ = _drawn_pools(rng, c, n_iter=n_iter, b=b, d=d)
+    rows = np.concatenate([neg.reshape(c, -1, d), np.zeros((c, 5, d), np.float32)], 1)
+    counts = rng.integers(n_iter * b - 6, n_iter * b + 1, size=c)
+    pool = dacc.Pool(_t(rows), _t(counts))
+    params = mb.MinibootstrapParams(m=8, sigma=3.0, lam=1e-2)
+    probe = _t(rng.normal(size=(32, d)).astype(np.float32))
+    scores = {}
+    for chunk in (None, 8):
+        model = _train_head_chunked(pool, _t(pos), _t(pv), params, None, n_iter, b, mode,
+                                    chunk, torch.Generator().manual_seed(3))
+        assert bool(model.exists.all())
+        scores[chunk] = f.falkon_predict_classes(model, probe).numpy()
+    np.testing.assert_allclose(scores[8], scores[None], atol=1e-5, rtol=0)
+
+
 # ---- RLS
 
 
