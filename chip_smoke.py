@@ -13,6 +13,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    cores) must stay within 1e-5 of the sum of its terms' magnitudes of the
    IEEE fp32 plain version, its tf32 split must match its plain version bit
    for bit, and its bound is taken at the 3xTF32 rate (495 / 3 TFLOP/s).
+   B1 is also held within 1e-5 of the sum of its terms' magnitudes of the
+   float64 plain version on seed-built rows at a detector mining pass's
+   shape with the norms of the flagship training's own mining rows
+   (``mining_rows``; fault C5).
    The RoIAlign kernels B3 and B4 are also held, at full width, on
    adversarial boxes over a 38 x 50 and a 50 x 84 map, and their times are
    printed beside those of the kernels they replaced (``REPLACED_ROI_MS``).
@@ -33,8 +37,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
    models; checks the launch counts of each path, the models and the
    detections; trains once more from a copy of the same reservoirs and the
    same generator state with every mining pass scored by B1's plain version
-   (B1 run beside it, both measured against float64; exists and RLS held
-   equal to the first run's, the FALKON scores recorded); holds B4 (the
+   (B1 run beside it, both measured against float64: B1 held within 1e-5
+   of the sum of its terms' magnitudes on every pass; exists and RLS held
+   equal to the first run's, the FALKON scores and the scores on the other
+   side of a mining threshold recorded); holds B4 (the
    harvest RoIAlign) and B1 at the mining shapes against their plain
    versions; traces one harvest batch; and runs harvest
    and training on a few small canvases on the card and on the CPU with the
@@ -469,6 +475,87 @@ def check_mmv_call(role, x, fm, set_idx, report, iters=5, plain_iters=3):
     print(f"  gaussian_mmv[{role}] G={g} N={n} M={m} d={d}: {ms:.3f} ms (SIMT fp32 kernel "
           f"{SIMT_B1_MS[role]:.2f} ms; plain {plain:.3f} ms; 3xTF32 bound {bound:.3f} ms, {by}; "
           f"of it the split {split_ms:.3f} ms; max err {rel:.2e} of sum |terms|)", flush=True)
+
+
+# a detector mining pass (groups, rows, centers, d, sigma) for the seed-built
+# check of B1 on rows like the flagship training's own mining rows
+MINING_ROWS = (8, 20000, 1000, 2048, 15.0)
+# the norms of the detector's mining rows and of their centers (median, 99th
+# percentile, maximum) over the mining passes of seven training draws, as
+# tools/b1_variants.py measured them (PERF.md, section 6)
+MINING_ROW_NORMS = {"rows": (2.875, 16.80, 18.00), "centers": (8.053, 16.57, 18.00)}
+# the cosine of the seed-built rows and centers to a common direction: the
+# same passes' centers lie at a median cosine of 0.99997 to their class's
+# mean center, and 1 % of the rows above 0.977
+MINING_COSINE = 0.95
+
+
+def mining_rows(seed, cosine=MINING_COSINE):
+    """Rows and centers at ``MINING_ROWS``'s shape whose norms are log-normal
+    with the medians and 99th percentiles of ``MINING_ROW_NORMS`` (cut at
+    its maxima, which one row and one center a group take), each at ``cosine``
+    to its group's common direction, as a class's rows are: every cross
+    term x.c is large, and a bias of the tensor cores' sums shows in every
+    term at once. v >= 0, so no term's error cancels another's."""
+    import math
+
+    import torch
+
+    g, n, m, d, sigma = MINING_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e = torch.randn((g, 1, d), generator=gen, device="cuda")
+    e /= e.norm(dim=-1, keepdim=True)
+
+    def draw(count, median, p99, top):
+        spread = math.log(p99 / median) / 2.3263  # the normal's 99th percentile
+        r = torch.exp(math.log(median)
+                      + spread * torch.randn((g, count), generator=gen, device="cuda"))
+        r = r.clamp(max=top)
+        r[:, 0] = top
+        u = torch.randn((g, count, d), generator=gen, device="cuda")
+        u -= (u * e).sum(-1, keepdim=True) * e
+        u /= u.norm(dim=-1, keepdim=True)
+        return (cosine * e + math.sqrt(1.0 - cosine * cosine) * u) * r[..., None]
+
+    c = draw(m, *MINING_ROW_NORMS["centers"])
+    x = draw(n, *MINING_ROW_NORMS["rows"])
+    v = torch.randn((g, m), generator=gen, device="cuda").abs()
+    return x, c, v, sigma
+
+
+def mining_rows_error(fn, seed, cosine=MINING_COSINE) -> float:
+    """``fn(x, centers, v, sigma)`` on ``mining_rows``: its largest distance
+    from the float64 plain version, as a share of the sum of the terms'
+    magnitudes."""
+    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_reference
+
+    x, c, v, sigma = mining_rows(seed, cosine)
+    got = fn(x, c, v, sigma).double()
+    x, c, v = x.double(), c.double(), v.double()
+    ref = mmv_reference(x, c, v, sigma)
+    terms = mmv_reference(x, c, v.abs(), sigma).clamp(min=1e-30)
+    return float(((got - ref).abs() / terms).max())
+
+
+def check_mmv_mining_rows(seed, report):
+    """B1 on ``mining_rows``: within 1e-5 of the sum of its terms'
+    magnitudes of the float64 plain version, else the smoke fails. The fp32
+    plain version's error on the same rows is recorded beside it."""
+    from online_detection_tpu_torch.ops.gaussian_mmv import mmv_grouped, mmv_reference
+    from online_detection_tpu_torch.utils.device import ieee_fp32
+
+    err = mining_rows_error(mmv_grouped, seed)
+    with ieee_fp32():
+        plain = mining_rows_error(mmv_reference, seed)
+    report["gaussian_mmv"]["mining_rows"] = {
+        "shape": MINING_ROWS, "norms": MINING_ROW_NORMS, "cosine": MINING_COSINE,
+        "max_rel_to_terms": err, "fp32_plain_max_rel_to_terms": plain}
+    print(f"  gaussian_mmv on seed-built mining rows {MINING_ROWS} with the training's norms "
+          f"{MINING_ROW_NORMS} at cosine {MINING_COSINE} to a common direction: {err:.2e} of "
+          f"sum |terms| from float64 (fp32 plain version {plain:.2e})", flush=True)
+    if not err <= 1e-5:
+        fail(f"gaussian_mmv on the seed-built mining rows: {err:.3g} of sum |terms| from "
+             f"float64, over 1e-5")
 
 
 def check_mmv(inputs, report):
@@ -1089,18 +1176,20 @@ def plain_b1_training_check(state, draws, cfg, trained, seed):
     reservoirs and its generator state, with each mining pass scored by
     B1's plain version in IEEE fp32 in place of the kernel, the kernel run
     beside it on the same inputs and both held against the plain version
-    in float64: the training a plain B1 gives. Recorded for every pass: the
-    kernel's and the fp32 plain version's largest distance from the float64
-    scores as a share of the sum of the terms' magnitudes, and the scores on
-    which the kernel and the fp32 plain version fall on two sides of a
-    mining threshold. Held, whatever the draw: both finite exactly where the
-    float64 scores are, and the models' ``exists`` and RLS (which no mining
-    pass reaches) equal to the training phase's within MESH_TOL. Recorded,
-    not held: the FALKON scores against the training phase's. At the
-    flagship's widths B1 errs by up to 1.2e-5 of the sum |terms| on the
-    detector's mining rows, ten times the fp32 plain version, so scores near
-    a mining threshold land on its other side and the detector's models
-    differ (PERF.md, section 6; ROADMAP.md, fault C5)."""
+    in float64: the training a plain B1 gives. Held, whatever the draw: B1
+    within 1e-5 of the sum of the terms' magnitudes of the float64 scores
+    on every pass (fault C5: a kernel that summed all of d in one
+    tensor-core accumulator reached 1.24e-5 on the detector's rows,
+    ROADMAP.md section C), B1 and the fp32 plain version
+    finite exactly where the float64 scores are, and the models' ``exists``
+    and RLS (which no mining pass reaches) equal to the training phase's
+    within MESH_TOL. Recorded for every pass: B1's and the fp32 plain
+    version's largest distance from the float64 scores, and the scores
+    that fall on the other side of a mining threshold from the float64
+    score's, for B1 and for the fp32 plain version. Recorded, not held: the
+    FALKON scores against the training phase's (the card's roundings move
+    scores across a threshold even for the plain version, and the
+    thresholds turn that into other models)."""
     import numpy as np
     import torch
 
@@ -1113,7 +1202,8 @@ def plain_b1_training_check(state, draws, cfg, trained, seed):
     kernel = minibootstrap.mmv_grouped
     rec = {"calls": 0, "scores": 0, "max_abs_err": 0.0, "max_rel_to_terms": 0.0,
            "fp32_plain_max_rel_to_terms": 0.0, "passes_over_1e-5": 0, "not_finite": 0,
-           "straddles": 0, "per_pass": []}
+           "straddles": {"b1_vs_float64": 0, "fp32_plain_vs_float64": 0,
+                         "b1_vs_fp32_plain": 0}, "per_pass": []}
 
     def shadowed(x, centers, v, sigma, set_idx=None):
         got = kernel(x, centers, v, sigma, set_idx)
@@ -1131,8 +1221,11 @@ def plain_b1_training_check(state, draws, cfg, trained, seed):
         err = torch.where(finite, (got - ref).abs(), 0.0)
         rel = float((err / terms).max())
         rel_plain = float((torch.where(finite, (plain - ref).abs(), 0.0) / terms).max())
-        straddles = sum(int(((got > t) != (plain > t))[finite].sum())
-                        for t in (cfg.hard_thresh, cfg.easy_thresh))
+        straddles = {k: sum(int(((a > t) != (b > t))[finite].sum())
+                            for t in (cfg.hard_thresh, cfg.easy_thresh))
+                     for k, a, b in (("b1_vs_float64", got, ref),
+                                     ("fp32_plain_vs_float64", plain, ref),
+                                     ("b1_vs_fp32_plain", got, plain))}
         rec["calls"] += 1
         rec["scores"] += int(finite.sum())
         rec["not_finite"] += int((~finite).sum())
@@ -1141,7 +1234,8 @@ def plain_b1_training_check(state, draws, cfg, trained, seed):
         rec["fp32_plain_max_rel_to_terms"] = max(rec["fp32_plain_max_rel_to_terms"],
                                                  rel_plain)
         rec["passes_over_1e-5"] += rel > 1e-5
-        rec["straddles"] += straddles
+        for k, n in straddles.items():
+            rec["straddles"][k] += n
         rec["per_pass"].append([list(x.shape), rel, rel_plain, straddles])
         return plain
 
@@ -1165,11 +1259,15 @@ def plain_b1_training_check(state, draws, cfg, trained, seed):
           f"passes, {rec['scores']} scores; B1's largest distance from the float64 scores "
           f"{rec['max_abs_err']:.3e}, {rec['max_rel_to_terms']:.2e} of sum |terms| (over "
           f"1e-5 in {rec['passes_over_1e-5']} passes; the fp32 plain version "
-          f"{rec['fp32_plain_max_rel_to_terms']:.2e}); {rec['straddles']} scores on which B1 "
-          f"and the plain version fall on two sides of a threshold; {rec['not_finite']} not "
+          f"{rec['fp32_plain_max_rel_to_terms']:.2e}); scores on the other side of a mining "
+          f"threshold {json.dumps(rec['straddles'])}; {rec['not_finite']} not "
           f"finite in all three; models against the kernel's "
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in rec['models'].items()})}",
           flush=True)
+    if rec["passes_over_1e-5"]:
+        fail(f"the plain-B1 training: B1 is {rec['max_rel_to_terms']:.3g} of sum |terms| from "
+             f"the float64 scores, over 1e-5 in {rec['passes_over_1e-5']} of {rec['calls']} "
+             f"mining passes")
     return rec
 
 
@@ -3632,6 +3730,7 @@ def main(argv=None) -> int:
     print("kernels vs plain versions on the card:", flush=True)
     with torch.inference_mode(), ieee_fp32():
         check_mmv(inputs, report)
+        check_mmv_mining_rows(args.seed, report)
         check_stem(params, inputs, report)
         check_stem_shapes(args.seed, report)
         check_roi(inputs, report)

@@ -1,7 +1,8 @@
-// Asynchronous bulk copies on Hopper for the RoIAlign backward kernel
-// (roi_align_backward.cu): mbarriers, a 3-D TMA tensor load into shared
-// memory, and the tensor-map encoder. The same pieces as the Gaussian mmv
-// kernel's (gaussian_mmv.cu), which keeps its own copy.
+// Asynchronous bulk copies on Hopper, shared by the Gaussian mmv kernel
+// (gaussian_mmv.cu: 2-D boxes into 128-byte-swizzled shared memory) and the
+// RoIAlign backward kernel (roi_align_backward.cu: 3-D boxes, unswizzled):
+// mbarriers, TMA tensor loads into shared memory, and the tensor-map
+// encoders.
 
 #pragma once
 
@@ -51,6 +52,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// One box of a 2-D tensor at coordinates (c0, c1), innermost first, into
+// shared memory; completes `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // One box of a 3-D tensor at coordinates (c0, c1, c2), innermost first, into
 // shared memory; completes `bytes` of the barrier's transaction count. The
 // L2 policy `pol` comes from createpolicy.
@@ -81,6 +93,24 @@ inline EncodeTiled encoder() {
     if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
   return fn;
+}
+
+// A [rows, cols] fp32 row-major tensor, read in boxes of box_rows x 32
+// (one 128-byte row each) into 128-byte-swizzled shared memory; zeros past
+// its ends.
+inline int encode_2d_sw128(CUtensorMap* map, const void* base, long long rows, int cols,
+                           int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // A 3-D fp32 tensor of dims[0] x dims[1] x dims[2] elements (innermost

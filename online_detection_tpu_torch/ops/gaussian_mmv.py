@@ -12,8 +12,9 @@ through ``mmv_reference``, the plain PyTorch version of the same function.
 The cross term and ``K @ v`` cancel, so they run at fp32 accuracy (a single
 reduced-precision pass cost det mAP 0.92 -> 0.50 on the TPU): on the card as
 3xTF32 on the tensor cores (``split_tf32`` splits each operand into two
-tf32 halves, ``x.c ~ x_hi.c_hi + x_hi.c_lo + x_lo.c_hi``), in the plain
-version as IEEE fp32.
+tf32 halves, ``x.c ~ x_hi.c_hi + x_hi.c_lo + x_lo.c_hi``; the tensor cores
+sum 32 columns of d at a time, and the partials are added in IEEE fp32),
+in the plain version as IEEE fp32.
 """
 
 from __future__ import annotations

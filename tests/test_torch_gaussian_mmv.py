@@ -1,7 +1,7 @@
 """Port's Gaussian mmv (plain version of kernel B1) vs the JAX package:
 ``mmv_xla``, the Pallas ``mmv_pallas`` in interpret mode, the class-batched
 FALKON predict, and the own-class mask scores; and the kernel's 3xTF32
-arithmetic, emulated on the CPU, against ``mmv_xla``.
+arithmetic, emulated on the CPU, against ``mmv_xla`` and float64.
 
 Tolerance: the same fp32 function summed in another order, so each output
 may differ by 1e-5 of the sum of its terms' magnitudes, ``K @ |v|``."""
@@ -239,3 +239,123 @@ def test_one_pass_tf32_mmv_is_far_less_accurate(rng, d, sigma):
     assert err1.max() >= 10 * err3.max()
     if d == 256:
         assert (err1 > 1).any()
+
+
+# --- the kernel's sums: two-level accumulation --------------------------
+
+# the norms of the flagship training's detector mining rows and of their
+# centers (median, 99th percentile, maximum), as chip_smoke.MINING_ROW_NORMS
+_MINING_NORMS = {"rows": (2.875, 16.80, 18.00), "centers": (8.053, 16.57, 18.00)}
+
+
+def _mining_rows(rng, cosine, n=64, m=48, d=2048):
+    """Rows and centers with the mining rows' norms (log-normal with their
+    median and 99th percentile, cut at the maximum, which the first row and
+    the first center take), each at ``cosine`` to one common direction, as
+    a class's rows are; v >= 0. chip_smoke.mining_rows at a small size."""
+    e = rng.normal(size=d)
+    e /= np.linalg.norm(e)
+
+    def draw(k, median, p99, top):
+        spread = np.log(p99 / median) / 2.3263
+        r = np.minimum(np.exp(np.log(median) + spread * rng.normal(size=k)), top)
+        r[0] = top
+        u = rng.normal(size=(k, d))
+        u -= (u @ e)[:, None] * e
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        return ((cosine * e + np.sqrt(1 - cosine ** 2) * u) * r[:, None]).astype(np.float32)
+
+    c = draw(m, *_MINING_NORMS["centers"])
+    x = draw(n, *_MINING_NORMS["rows"])
+    return x, c, np.abs(rng.normal(size=m)).astype(np.float32)
+
+
+def _round_toward_zero(a):
+    """float64 -> float32, rounded toward zero."""
+    f = a.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(a)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_cross(x, c, stage_cols=None):
+    """x.c as the kernel forms it on a model of the tensor cores: per k-step
+    of 8 columns, 3 wgmma (x_lo c_hi, x_hi c_lo, x_hi c_hi), each adding its
+    8 exact products into an fp32 accumulator rounded toward zero. With
+    ``stage_cols`` (two-level), each stage of that many columns starts from
+    zero and its partial is added into an IEEE fp32 sum; without, one
+    accumulator runs over all of d (the kernel before the fault C5 repair)."""
+    xh, ch = _tf32(x), _tf32(c)
+    xl, cl = _tf32(x - xh), _tf32(c - ch)
+    acc = np.zeros((len(x), len(c)), np.float32)
+    total = np.zeros_like(acc)
+    for k0 in range(0, x.shape[1], 8):
+        cols = slice(k0, k0 + 8)
+        fresh = stage_cols is not None and k0 % stage_cols == 0
+        for i, (a, b) in enumerate(((xl, ch), (xh, cl), (xh, ch))):
+            products = a[:, cols].astype(np.float64) @ b[:, cols].astype(np.float64).T
+            acc = _round_toward_zero(products + (0.0 if fresh and i == 0 else acc))
+        if stage_cols is not None and (k0 + 8) % stage_cols == 0:
+            total = total + acc
+    return acc if stage_cols is None else total
+
+
+def _mmv_of_cross(x, c, v, sigma, cross):
+    xn, cn = (x * x).sum(1, dtype=np.float32), (c * c).sum(1, dtype=np.float32)
+    sq = xn[:, None] + cn[None] - np.float32(2) * cross
+    return np.exp(-np.maximum(sq, 0) / np.float32(2 * sigma * sigma)) @ v
+
+
+def _rel_to_terms(got, x, c, v, sigma):
+    """max |got - float64| / sum |terms| (float64)."""
+    x64, c64 = x.astype(np.float64), c.astype(np.float64)
+    sq = (x64 * x64).sum(1)[:, None] + (c64 * c64).sum(1)[None] - 2 * x64 @ c64.T
+    k = np.exp(-np.maximum(sq, 0) / (2 * sigma * sigma))
+    return np.max(np.abs(got - k @ v) / (k @ np.abs(v)))
+
+
+@pytest.mark.parametrize("cosine", [0.0, 0.95])
+def test_mmv_matches_mmv_xla_at_mining_norms(rng, cosine):
+    """The plain version agrees with ``mmv_xla`` within the stated bound on
+    rows with the norms of the flagship training's detector mining rows (d
+    2048, sigma 15), with and without a common direction."""
+    x, c, v = _mining_rows(rng, cosine)
+    want = np.asarray(mmv_xla(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), 15.0))
+    got = mmv(torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(v), 15.0).numpy()
+    assert (np.abs(got - want) <= _bound(x, c, v, 15.0)[:, 0]).all()
+
+
+@pytest.mark.parametrize("stage_cols,within", [(None, False), (32, True)],
+                         ids=["one_accumulator", "two_level"])
+def test_tensor_core_sums_on_mining_rows(rng, stage_cols, within):
+    """Fault C5 on a model of the tensor cores' fp32 sums. The cause lies in
+    the card's accumulation, which no CPU computes; this emulates it as each
+    wgmma's sum rounded toward zero, a model that gives the size of the
+    error the card showed (6e-3 in x.c on the training's mining rows,
+    tools/b1_variants.py; chip_smoke.py holds the kernel itself). On rows at
+    the mining rows' largest norm along one direction, the kernel's old
+    order (one accumulator over all 2048 columns) falls outside 1e-5 of the
+    sum of the terms' magnitudes, and its two-level order (a stage's 32
+    columns from zero, the partials summed in IEEE fp32) within 1e-6."""
+    x, c, v = _mining_rows(rng, 1.0)
+    err = _rel_to_terms(_mmv_of_cross(x, c, v, 15.0, _tensor_core_cross(x, c, stage_cols)),
+                        x, c, v, 15.0)
+    assert (err <= 1e-6) if within else (err > 1e-5)
+
+
+@pytest.mark.parametrize("d,sigma", _ROLES)
+def test_two_level_ieee_sums_match_mmv_xla(rng, d, sigma):
+    """The kernel's order with IEEE sums in place of the tensor cores' (each
+    stage's three tf32 products from zero, the partials summed in fp32) is
+    as close to ``mmv_xla`` as the stated bound, on rows next to their
+    centers at each role's width."""
+    x, c, v = _near_centers(rng, d, sigma)
+    xh, ch = _tf32(x), _tf32(c)
+    xl, cl = _tf32(x - xh), _tf32(c - ch)
+    cross = np.zeros((len(x), len(c)), np.float32)
+    for k0 in range(0, d, 32):
+        cols = slice(k0, k0 + 32)
+        cross += sum(a[:, cols] @ b[:, cols].T for a, b in ((xl, ch), (xh, cl), (xh, ch)))
+    want = np.asarray(mmv_xla(jnp.asarray(x), jnp.asarray(c), jnp.asarray(v), sigma))
+    got = _mmv_of_cross(x, c, v, sigma, cross)
+    assert (np.abs(got - want) <= _bound(x, c, v, sigma)[:, 0]).all()
