@@ -1,0 +1,6 @@
+"""b4.roofline.teach.icwt30: ``b4.roofline.teach`` read in the cell ``icwt30.teach``, which reports
+``teach_s.icwt30``; the same reader (``metrics/b4.roofline.teach.py``)."""
+
+from benchmark.harness import reader
+
+read = reader("b4.roofline.teach")
