@@ -39,6 +39,7 @@ from online_detection_tpu_torch.models.rpn import OnlineRPNModels, propose, rpn_
 from online_detection_tpu_torch.ops.roi_align import roi_align_fused2
 from online_detection_tpu_torch.utils import boxes as box_ops
 from online_detection_tpu_torch.utils.draws import randint_below, uniform, valid_first
+from online_detection_tpu_torch.utils.telemetry import annotate
 
 
 class HarvestConfig(NamedTuple):
@@ -336,28 +337,32 @@ def harvest_trunk(params, online_rpn: Optional[OnlineRPNModels], anchors: torch.
     The trunk runs in ``dcfg``'s compute dtype; what the sampling stages see
     is cast back to f32, as in the JAX package."""
     dev = images.device
-    x = normalize_canvas(images).to(resolve_compute_dtype(dcfg, dev))
-    c4 = resnet.backbone_c4(params.backbone, x)
-    t = rpn_features(params.rpn, c4)
-    scores, deltas = rpn_scores_deltas(params.rpn, online_rpn, t)
-    prop_boxes, _, prop_valid = propose(
-        scores, deltas, anchors, image_sizes.float(),
-        pre_nms_top_n=dcfg.pre_nms_top_n, post_nms_top_n=dcfg.post_nms_top_n,
-        nms_thresh=dcfg.rpn_nms_thresh, min_size=dcfg.rpn_min_size)
+    with annotate("trunk.backbone"):
+        x = normalize_canvas(images).to(resolve_compute_dtype(dcfg, dev))
+        c4 = resnet.backbone_c4(params.backbone, x)
+    with annotate("trunk.propose"):
+        t = rpn_features(params.rpn, c4)
+        scores, deltas = rpn_scores_deltas(params.rpn, online_rpn, t)
+        prop_boxes, _, prop_valid = propose(
+            scores, deltas, anchors, image_sizes.float(),
+            pre_nms_top_n=dcfg.pre_nms_top_n, post_nms_top_n=dcfg.post_nms_top_n,
+            nms_thresh=dcfg.rpn_nms_thresh, min_size=dcfg.rpn_min_size)
 
-    b, g = gt_boxes.shape[:2]
-    p = dcfg.pooler_resolution
-    all_boxes = torch.cat([gt_boxes.float(), prop_boxes], dim=1)
-    pooled = roi_align_fused2(c4, all_boxes, p, dcfg.pooler_scale)  # [B, G+R, P, P, C]
-    r = pooled.shape[1]
-    flat = pooled.reshape((b * r,) + pooled.shape[2:])
-    feats = resnet.res5_feature_map(params.backbone, flat).float().mean(dim=(1, 2))
-    deconv = None
-    if with_mask_features:
-        # res5 again on the G GT rows only, as in the JAX package
-        gt_rows = pooled[:, :g].reshape((b * g,) + pooled.shape[2:])
-        deconv = mask_deconv(params.mask_head, resnet.res5_feature_map(params.backbone, gt_rows))
-        deconv = deconv.reshape((b, g) + deconv.shape[1:])
+    with annotate("trunk.roi"):
+        b, g = gt_boxes.shape[:2]
+        p = dcfg.pooler_resolution
+        all_boxes = torch.cat([gt_boxes.float(), prop_boxes], dim=1)
+        pooled = roi_align_fused2(c4, all_boxes, p, dcfg.pooler_scale)  # [B, G+R, P, P, C]
+        r = pooled.shape[1]
+        flat = pooled.reshape((b * r,) + pooled.shape[2:])
+        feats = resnet.res5_feature_map(params.backbone, flat).float().mean(dim=(1, 2))
+        deconv = None
+        if with_mask_features:
+            # res5 again on the G GT rows only, as in the JAX package
+            gt_rows = pooled[:, :g].reshape((b * g,) + pooled.shape[2:])
+            deconv = mask_deconv(params.mask_head,
+                                 resnet.res5_feature_map(params.backbone, gt_rows))
+            deconv = deconv.reshape((b, g) + deconv.shape[1:])
     return t.float(), prop_boxes, prop_valid, feats.reshape(b, r, -1), deconv
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from online_detection_tpu_torch.utils.boxes import box_iou
+from online_detection_tpu_torch.utils.telemetry import count
 
 NEG_INF = -1e30
 
@@ -51,12 +52,14 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     over = (iou > iou_threshold) & earlier & svalid[..., :, None] & svalid[..., None, :]
 
     sup = torch.any(over & svalid[..., :, None], dim=-2)
-    for _ in range(n):
+    sweeps = 0
+    for sweeps in range(1, n + 1):  # each sweep ends in a host read
         kept = svalid & ~sup
         new_sup = torch.any(over & kept[..., :, None], dim=-2)
         if torch.equal(new_sup, sup):
             break
         sup = new_sup
+    count("nms.sweeps", sweeps)
     keep_sorted = svalid & ~sup
     return torch.zeros_like(valid).scatter(-1, order, keep_sorted)
 

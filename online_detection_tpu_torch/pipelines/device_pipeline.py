@@ -61,6 +61,7 @@ from online_detection_tpu_torch.utils.device import sync as _sync
 from online_detection_tpu_torch.utils.device import to_device as _to_device
 from online_detection_tpu_torch.utils.draws import uniform
 from online_detection_tpu_torch.utils.stats import zscore
+from online_detection_tpu_torch.utils.telemetry import annotate
 
 _LOG = logging.getLogger("online_detection_tpu_torch.device_pipeline")
 
@@ -189,7 +190,7 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
     dev = _entry_device(device, mesh)
     if params.rpn.conv_w.device.type != dev.type:
         raise ValueError(f"params are on {params.rpn.conv_w.device}; move them to {dev}")
-    with ieee_fp32(), torch.inference_mode():
+    with ieee_fp32(), torch.inference_mode(), annotate("harvest"):
         t0 = time.time()
         n_images = len(dataset)
         npick = math.ceil(cfg.batch_size * cfg.iterations / max(n_images, 1))
@@ -219,7 +220,9 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
             gv = np.arange(gt_cap) < g
             gm = None
             if cfg.with_segmentation:
-                gm = project_masks_for_image(dataset.load_masks(i, anno), gb[:g], scale, gt_cap)
+                with annotate("harvest.masks"):
+                    gm = project_masks_for_image(dataset.load_masks(i, anno), gb[:g], scale,
+                                                 gt_cap)
             return canvas, (sw, sh), gb, gl, gv, gm, anchor_visibility(anchors_np, (sw, sh))
 
         _LOG.info("harvest (device reservoirs): %d images, batch %d, on %s, mesh %s, "
@@ -227,45 +230,55 @@ def harvest_dataset_device(generator: Optional[torch.Generator], params, dataset
                   prefetch)
         with CanvasLoader(dataset, canvas_hw, min_size, max_size, prefetch=prefetch) as loader:
             for lo in range(0, n_images, b):
-                items = [host_item(loader, i) for i in range(lo, min(lo + b, n_images))]
+                with annotate("harvest.load"):
+                    items = [host_item(loader, i) for i in range(lo, min(lo + b, n_images))]
                 n_real = len(items)
                 items += [items[-1]] * (b - n_real)  # pad the tail batch (gated below)
 
                 def stack(k):
                     return _to_device(np.stack([it[k] for it in items]), dev)
 
-                sizes = _to_device(np.asarray([it[1] for it in items], np.int64), dev)
-                gbs, gls, gvs, viss = stack(2), stack(3), stack(4), stack(6)
-                gms = stack(5) if cfg.with_segmentation else None
-                img_valid = torch.arange(b, device=dev) < n_real
-                if trunk_fn is None:
-                    trunk = harvest_trunk(params, online_rpn, anchors, stack(0), sizes, gbs,
-                                          gvs, dcfg, cfg.with_segmentation)
-                else:
-                    trunk = trunk_fn(stack(0), sizes, gbs, gvs)
-                chunks = harvest_chunks(*trunk, anchors, viss, sizes, gbs, gls, gvs, gms, hcfg,
-                                        cfg.with_rpn, generator)
-                state = dacc.accumulate_batch(state, chunks, img_valid, cfg.num_classes)
-        _sync(dev)
-        dt = time.time() - t0
-        _LOG.info("harvest done: %d images in %.1f s (%.1f img/s)", n_images, dt,
-                  n_images / max(dt, 1e-9))
-        _write_result(output_dir, "Detector's features extracted in: {} \n".format(_fmt(dt)))
-        meta = {"extraction_time": dt,
-                "average_recall": float(state.ar_sum / state.n_images.clamp(min=1))}
-        _write_result(output_dir, "Average Recall (AR): {} \n \n".format(meta["average_recall"]))
-        # never truncate silently: per-image chunk caps and saturated pools
-        trunc = {"harvest": int(state.harvest_dropped)}
-        for name in ("rpn_pos", "rpn_neg", "det_pos", "det_neg", "det_coxy", "mask_pos",
-                     "mask_neg"):
-            pool = getattr(state, name)
-            if pool is not None:
-                trunc[name] = pool.dropped()
-        trunc["total"] = sum(trunc.values())
-        meta["truncation"] = trunc
-        if trunc["total"] > 0:
-            _LOG.warning("fixed-capacity truncation during device harvest: %s", trunc)
-            _write_result(output_dir, "truncated: {} \n".format(trunc))
+                with annotate("harvest.upload"):
+                    sizes = _to_device(np.asarray([it[1] for it in items], np.int64), dev)
+                    gbs, gls, gvs, viss = stack(2), stack(3), stack(4), stack(6)
+                    gms = stack(5) if cfg.with_segmentation else None
+                    img_valid = torch.arange(b, device=dev) < n_real
+                    images = stack(0)
+                with annotate("harvest.trunk"):
+                    if trunk_fn is None:
+                        trunk = harvest_trunk(params, online_rpn, anchors, images, sizes, gbs,
+                                              gvs, dcfg, cfg.with_segmentation)
+                    else:
+                        trunk = trunk_fn(images, sizes, gbs, gvs)
+                del images  # the canvases are not needed past the trunk
+                with annotate("harvest.sample"):
+                    chunks = harvest_chunks(*trunk, anchors, viss, sizes, gbs, gls, gvs, gms,
+                                            hcfg, cfg.with_rpn, generator)
+                with annotate("harvest.accumulate"):
+                    state = dacc.accumulate_batch(state, chunks, img_valid, cfg.num_classes)
+        with annotate("harvest.finish"):
+            _sync(dev)
+            dt = time.time() - t0
+            _LOG.info("harvest done: %d images in %.1f s (%.1f img/s)", n_images, dt,
+                      n_images / max(dt, 1e-9))
+            _write_result(output_dir,
+                          "Detector's features extracted in: {} \n".format(_fmt(dt)))
+            meta = {"extraction_time": dt,
+                    "average_recall": float(state.ar_sum / state.n_images.clamp(min=1))}
+            _write_result(output_dir,
+                          "Average Recall (AR): {} \n \n".format(meta["average_recall"]))
+            # never truncate silently: per-image chunk caps and saturated pools
+            trunc = {"harvest": int(state.harvest_dropped)}
+            for name in ("rpn_pos", "rpn_neg", "det_pos", "det_neg", "det_coxy", "mask_pos",
+                         "mask_neg"):
+                pool = getattr(state, name)
+                if pool is not None:
+                    trunc[name] = pool.dropped()
+            trunc["total"] = sum(trunc.values())
+            meta["truncation"] = trunc
+            if trunc["total"] > 0:
+                _LOG.warning("fixed-capacity truncation during device harvest: %s", trunc)
+                _write_result(output_dir, "truncated: {} \n".format(trunc))
     return state, meta
 
 
@@ -289,103 +302,98 @@ def train_online_modules_device(generator: Optional[torch.Generator], state,
         state = state.pop()  # take the only reference
     if state.det_neg.rows.device.type != dev.type:
         raise ValueError(f"reservoirs are on {state.det_neg.rows.device}; expected {dev}")
-    clock = _StageClock(dev, timings)
+    clock = _StageClock(dev, timings, output_dir)
 
     def mb(m, sigma, lam):
         return MinibootstrapParams(m=m, sigma=sigma, lam=lam, hard_thresh=cfg.hard_thresh,
                                    easy_thresh=cfg.easy_thresh)
 
-    with ieee_fp32(), torch.inference_mode():
+    with ieee_fp32(), torch.inference_mode(), annotate("train"):
         online_rpn = None
         if cfg.with_rpn and state.rpn_neg is not None:
-            pos = state.rpn_pos.rows
-            pos_valid = state.rpn_pos.valid_mask()
-            stats_rpn = dacc.device_feature_stats_pool(
-                state.rpn_pos, state.rpn_neg, pos_fraction=cfg.pos_fraction_feat_stats,
-                generator=generator)
-            t0 = clock.start()
-            models = _train_head_chunked(
-                state.rpn_neg, pos, pos_valid, mb(cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam),
-                stats_rpn, cfg.iterations, cfg.batch_size,
-                "shuffle" if cfg.rpn_shuffle_negatives else "interleave",
-                cfg.solver_class_chunk, generator, mesh)
-            state = state.replace(rpn_neg=None)
-            _write_result(output_dir, "RPN's Online Classifier training time: {} \n".format(
-                clock.done("rpn_falkon", t0)))
+            with annotate("train.prepare"):
+                pos = state.rpn_pos.rows
+                pos_valid = state.rpn_pos.valid_mask()
+                stats_rpn = dacc.device_feature_stats_pool(
+                    state.rpn_pos, state.rpn_neg, pos_fraction=cfg.pos_fraction_feat_stats,
+                    generator=generator)
+            with clock.stage("rpn_falkon", "RPN's Online Classifier training time: {} \n"):
+                models = _train_head_chunked(
+                    state.rpn_neg, pos, pos_valid, mb(cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam),
+                    stats_rpn, cfg.iterations, cfg.batch_size,
+                    "shuffle" if cfg.rpn_shuffle_negatives else "interleave",
+                    cfg.solver_class_chunk, generator, mesh)
+                state = state.replace(rpn_neg=None)
             # RPN COXY: the positives' aligned targets; class = anchor index
-            t0 = clock.start()
-            a_cls = pos.shape[0]
-            cls1 = torch.arange(1, a_cls + 1, device=dev)[:, None].expand_as(pos_valid)
-            rls = rls_fit_grouped(zscore(pos, stats_rpn).reshape(-1, pos.shape[-1]),
-                                  state.rpn_coxy_y.rows.reshape(-1, 4), cls1.reshape(-1),
-                                  pos_valid.reshape(-1).float(), a_cls, cfg.rpn_reg_lam,
-                                  device_solve=True, mesh=mesh)
-            _write_result(output_dir, "RPN's Online Region Refiner training time: {} \n"
-                          .format(clock.done("rpn_rls", t0)))
+            with clock.stage("rpn_rls", "RPN's Online Region Refiner training time: {} \n"):
+                a_cls = pos.shape[0]
+                cls1 = torch.arange(1, a_cls + 1, device=dev)[:, None].expand_as(pos_valid)
+                rls = rls_fit_grouped(zscore(pos, stats_rpn).reshape(-1, pos.shape[-1]),
+                                      state.rpn_coxy_y.rows.reshape(-1, 4), cls1.reshape(-1),
+                                      pos_valid.reshape(-1).float(), a_cls, cfg.rpn_reg_lam,
+                                      device_solve=True, mesh=mesh)
             online_rpn = OnlineRPNModels(models, rls, stats_rpn)
             state = state.replace(rpn_pos=None, rpn_coxy_y=None)
             pos = pos_valid = None
 
         # ---- detector ----
-        packed = state.det_coxy.rows[0]  # [cap, d + 5]
-        d = packed.shape[1] - 5
-        coxy_x, coxy_y, coxy_c = packed[:, :d], packed[:, d:d + 4], packed[:, d + 4]
-        coxy_valid = state.det_coxy.valid_mask()[0]
-        if cfg.use_only_gt_positives_detection:
-            det_pos_pool = state.det_pos
-            pos, pos_valid = det_pos_pool.rows, det_pos_pool.valid_mask()
-        else:
-            # positives from the COXY rows, grouped by class on the card
-            m = coxy_valid[None, :] & (coxy_c.long()[None, :] == torch.arange(
-                1, cfg.num_classes + 1, device=dev)[:, None])  # [C, N]
-            frac = cfg.sampling_ratio_positives_detection
-            if frac < 1.0:
-                # a random subset without replacement: the floor(n * frac)
-                # valid rows with the smallest uniform draws
-                r = torch.where(m, uniform(m.shape, generator, dev), torch.full_like(
-                    m, 2.0, dtype=torch.float32))
-                rank = torch.sort(torch.sort(r, dim=1, stable=True).indices, dim=1,
-                                  stable=True).indices
-                m = m & (rank < torch.floor(m.sum(1, keepdim=True) * frac).long())
-            idx, pos_valid = compact(m, state.det_pos.rows.shape[1])
-            pos = coxy_x[idx]
-            det_pos_pool = dacc.Pool(pos, pos_valid.sum(1))
-        stats_det = dacc.device_feature_stats_pool(
-            det_pos_pool, state.det_neg, pos_fraction=cfg.pos_fraction_feat_stats,
-            generator=generator)
-        t0 = clock.start()
-        reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
-            else coxy_x
-        det_rls = rls_fit_grouped(reg_x, coxy_y, coxy_c, coxy_valid.float(), cfg.num_classes,
-                                  cfg.det_reg_lam, device_solve=True, mesh=mesh)
-        _write_result(output_dir, "Detector's Online Region Refiner training time: {} \n \n"
-                      .format(clock.done("det_rls", t0)))
-        t0 = clock.start()
-        det_falkon = _train_head_chunked(
-            state.det_neg, pos, pos_valid, mb(cfg.det_m, cfg.det_sigma, cfg.det_lam), stats_det,
-            cfg.iterations, cfg.batch_size,
-            "shuffle" if cfg.shuffle_negatives else "interleave", cfg.solver_class_chunk,
-            generator, mesh)
-        pos = pos_valid = det_pos_pool = packed = coxy_x = coxy_y = coxy_c = reg_x = None
-        state = state.replace(det_neg=None, det_pos=None, det_coxy=None)
-        _write_result(output_dir, "Detector's Online Classifier training time: {} \n".format(
-            clock.done("det_falkon", t0)))
+        with annotate("train.prepare"):
+            packed = state.det_coxy.rows[0]  # [cap, d + 5]
+            d = packed.shape[1] - 5
+            coxy_x, coxy_y, coxy_c = packed[:, :d], packed[:, d:d + 4], packed[:, d + 4]
+            coxy_valid = state.det_coxy.valid_mask()[0]
+            if cfg.use_only_gt_positives_detection:
+                det_pos_pool = state.det_pos
+                pos, pos_valid = det_pos_pool.rows, det_pos_pool.valid_mask()
+            else:
+                # positives from the COXY rows, grouped by class on the card
+                m = coxy_valid[None, :] & (coxy_c.long()[None, :] == torch.arange(
+                    1, cfg.num_classes + 1, device=dev)[:, None])  # [C, N]
+                frac = cfg.sampling_ratio_positives_detection
+                if frac < 1.0:
+                    # a random subset without replacement: the floor(n * frac)
+                    # valid rows with the smallest uniform draws
+                    r = torch.where(m, uniform(m.shape, generator, dev), torch.full_like(
+                        m, 2.0, dtype=torch.float32))
+                    rank = torch.sort(torch.sort(r, dim=1, stable=True).indices, dim=1,
+                                      stable=True).indices
+                    m = m & (rank < torch.floor(m.sum(1, keepdim=True) * frac).long())
+                idx, pos_valid = compact(m, state.det_pos.rows.shape[1])
+                pos = coxy_x[idx]
+                det_pos_pool = dacc.Pool(pos, pos_valid.sum(1))
+            stats_det = dacc.device_feature_stats_pool(
+                det_pos_pool, state.det_neg, pos_fraction=cfg.pos_fraction_feat_stats,
+                generator=generator)
+        with clock.stage("det_rls",
+                         "Detector's Online Region Refiner training time: {} \n \n"):
+            reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
+                else coxy_x
+            det_rls = rls_fit_grouped(reg_x, coxy_y, coxy_c, coxy_valid.float(),
+                                      cfg.num_classes, cfg.det_reg_lam, device_solve=True,
+                                      mesh=mesh)
+        with clock.stage("det_falkon", "Detector's Online Classifier training time: {} \n"):
+            det_falkon = _train_head_chunked(
+                state.det_neg, pos, pos_valid, mb(cfg.det_m, cfg.det_sigma, cfg.det_lam),
+                stats_det, cfg.iterations, cfg.batch_size,
+                "shuffle" if cfg.shuffle_negatives else "interleave", cfg.solver_class_chunk,
+                generator, mesh)
+            pos = pos_valid = det_pos_pool = packed = coxy_x = coxy_y = coxy_c = reg_x = None
+            state = state.replace(det_neg=None, det_pos=None, det_coxy=None)
         online_det = OnlineDetectorModels(det_falkon, det_rls, stats_det)
 
         # ---- segmentation ----
         online_mask = None
         if cfg.with_segmentation and state.mask_pos is not None:
             seg_iters = max(1, math.ceil(state.mask_neg.rows.shape[1] / cfg.segm_batch_size))
-            stats_seg = dacc.device_feature_stats_pool(
-                state.mask_pos, state.mask_neg, pos_fraction=cfg.pos_fraction_feat_stats,
-                generator=generator)
-            t0 = clock.start()
-            seg_falkon = _train_head_chunked(
-                state.mask_neg, state.mask_pos.rows, state.mask_pos.valid_mask(),
-                mb(cfg.segm_m, cfg.segm_sigma, cfg.segm_lam), stats_seg, seg_iters,
-                cfg.segm_batch_size, "arrival", cfg.solver_class_chunk, generator, mesh)
-            state = state.replace(mask_pos=None, mask_neg=None)
-            _write_result(output_dir, "Online Segmentation training time: {} \n".format(
-                clock.done("segm_falkon", t0)))
+            with annotate("train.prepare"):
+                stats_seg = dacc.device_feature_stats_pool(
+                    state.mask_pos, state.mask_neg, pos_fraction=cfg.pos_fraction_feat_stats,
+                    generator=generator)
+            with clock.stage("segm_falkon", "Online Segmentation training time: {} \n"):
+                seg_falkon = _train_head_chunked(
+                    state.mask_neg, state.mask_pos.rows, state.mask_pos.valid_mask(),
+                    mb(cfg.segm_m, cfg.segm_sigma, cfg.segm_lam), stats_seg, seg_iters,
+                    cfg.segm_batch_size, "arrival", cfg.solver_class_chunk, generator, mesh)
+                state = state.replace(mask_pos=None, mask_neg=None)
             online_mask = OnlineMaskModels(seg_falkon, stats_seg)
     return OnlineModelSet(rpn=online_rpn, detector=online_det, mask=online_mask)

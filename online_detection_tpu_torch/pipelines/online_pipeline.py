@@ -28,6 +28,7 @@ classes over its devices, and ``run_inference`` each canvas batch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import math
@@ -73,6 +74,7 @@ from online_detection_tpu_torch.utils.device import (
 from online_detection_tpu_torch.utils.stats import FeatureStats, compute_feature_stats, zscore
 from online_detection_tpu_torch.utils.telemetry import (
     Timer,
+    annotate,
     profile_trace,
     setup_logger,
     teardown_logger,
@@ -153,26 +155,30 @@ def _entry_device(device, mesh) -> torch.device:
 
 
 class _StageClock:
-    """Stage clocks of both training routes: each starts after a device sync
-    (queued work such as the feature statistics ends first, so a clock spans
-    what the JAX package's spans) and ends after one; its seconds go into
-    ``timings`` under the stage's name."""
+    """Stage clocks of both training routes (``with clock.stage(name,
+    line):``): a stage starts after a device sync (queued work such as the
+    feature statistics ends first, so a clock spans what the JAX package's
+    spans) and ends after one, inside the span ``train.<name>``; its seconds
+    go into ``timings`` under its name, and ``line``, formatted with them,
+    into ``output_dir/result.txt``. A stage that raises records nothing."""
 
-    def __init__(self, dev: torch.device, timings: Optional[Dict[str, float]]):
+    def __init__(self, dev: torch.device, timings: Optional[Dict[str, float]],
+                 output_dir: Optional[str] = None):
         self.dev = dev
         self.timings = {} if timings is None else timings
+        self.output_dir = output_dir
 
-    def start(self) -> float:
+    @contextlib.contextmanager
+    def stage(self, name: str, line: str):
         sync(self.dev)
-        return time.time()
-
-    def done(self, stage: str, t0: float) -> str:
-        """Ends the stage; returns its time as ``result.txt`` writes it."""
-        sync(self.dev)
-        self.timings[stage] = time.time() - t0
+        with annotate("train." + name):
+            t0 = time.time()
+            yield
+            sync(self.dev)
+            self.timings[name] = time.time() - t0
         mem = torch.cuda.memory_allocated(self.dev) / 2**20 if self.dev.type == "cuda" else 0.0
-        _LOG.info("%s: %.3f s, %.0f MB allocated", stage, self.timings[stage], mem)
-        return _fmt(self.timings[stage])
+        _LOG.info("%s: %.3f s, %.0f MB allocated", name, self.timings[name], mem)
+        _write_result(self.output_dir, line.format(_fmt(self.timings[name])))
 
 
 def _head_stats(head: Dict, rng: np.random.Generator, pos_fraction: float,
@@ -357,22 +363,18 @@ def train_rpn_module(generator: Optional[torch.Generator], rpn: Dict, cfg: Onlin
     ``mesh``: the anchor classes are split over its devices, whose first
     must be ``device``."""
     dev = _entry_device(device, mesh)
-    clock = _StageClock(dev, timings)
+    clock = _StageClock(dev, timings, output_dir)
     rng = np.random.default_rng(seed)
     stats_rpn = _head_stats(rpn, rng, cfg.pos_fraction_feat_stats, dev)
-    t0 = clock.start()
-    models = _minibootstrap(rpn, dev, stats_rpn, cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam, cfg,
-                            generator, mesh)
-    _write_result(output_dir, "RPN's Online Classifier training time: {} \n".format(
-        clock.done("rpn_falkon", t0)))
+    with clock.stage("rpn_falkon", "RPN's Online Classifier training time: {} \n"):
+        models = _minibootstrap(rpn, dev, stats_rpn, cfg.rpn_m, cfg.rpn_sigma, cfg.rpn_lam, cfg,
+                                generator, mesh)
     # RPN refiners always train on z-scored COXY (run_..._oos.py:114)
-    t0 = clock.start()
-    coxy = rpn["coxy"]
-    cx = zscore(to_device(coxy["X"], dev), stats_rpn)
-    rls = _fit_rls_per_class(cx, coxy["Y"], coxy["C"], cfg.num_anchor_classes,
-                             cfg.rpn_reg_lam, zero_based=True)
-    _write_result(output_dir, "RPN's Online Region Refiner training time: {} \n".format(
-        clock.done("rpn_rls", t0)))
+    with clock.stage("rpn_rls", "RPN's Online Region Refiner training time: {} \n"):
+        coxy = rpn["coxy"]
+        cx = zscore(to_device(coxy["X"], dev), stats_rpn)
+        rls = _fit_rls_per_class(cx, coxy["Y"], coxy["C"], cfg.num_anchor_classes,
+                                 cfg.rpn_reg_lam, zero_based=True)
     return OnlineRPNModels(falkon=models, rls=rls, stats=stats_rpn)
 
 
@@ -385,7 +387,7 @@ def train_detector_module(generator: Optional[torch.Generator], det: Dict,
     """Stage 3: RLS refiners, then per-class FALKON classifiers of the
     detector (split over ``mesh``'s devices with one)."""
     dev = _entry_device(device, mesh)
-    clock = _StageClock(dev, timings)
+    clock = _StageClock(dev, timings, output_dir)
     rng = np.random.default_rng(seed)
     coxy = det["coxy"]
     coxy_x = to_device(coxy["X"], dev)
@@ -396,17 +398,14 @@ def train_detector_module(generator: Optional[torch.Generator], det: Dict,
         det = dict(det, pos=pos, pos_valid=pos_valid)
     stats_det = _head_stats(det, rng, cfg.pos_fraction_feat_stats, dev)
 
-    t0 = clock.start()
-    reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector else coxy_x
-    det_rls = _fit_rls_per_class(reg_x, coxy["Y"], coxy["C"], cfg.num_classes,
-                                 cfg.det_reg_lam, zero_based=False)
-    _write_result(output_dir, "Detector's Online Region Refiner training time: {} \n \n"
-                  .format(clock.done("det_rls", t0)))
-    t0 = clock.start()
-    det_falkon = _minibootstrap(det, dev, stats_det, cfg.det_m, cfg.det_sigma, cfg.det_lam,
-                                cfg, generator, mesh)
-    _write_result(output_dir, "Detector's Online Classifier training time: {} \n".format(
-        clock.done("det_falkon", t0)))
+    with clock.stage("det_rls", "Detector's Online Region Refiner training time: {} \n \n"):
+        reg_x = zscore(coxy_x, stats_det) if cfg.normalize_features_regressor_detector \
+            else coxy_x
+        det_rls = _fit_rls_per_class(reg_x, coxy["Y"], coxy["C"], cfg.num_classes,
+                                     cfg.det_reg_lam, zero_based=False)
+    with clock.stage("det_falkon", "Detector's Online Classifier training time: {} \n"):
+        det_falkon = _minibootstrap(det, dev, stats_det, cfg.det_m, cfg.det_sigma, cfg.det_lam,
+                                    cfg, generator, mesh)
     return OnlineDetectorModels(falkon=det_falkon, rls=det_rls, stats=stats_det)
 
 
@@ -419,14 +418,12 @@ def train_segmentation_module(generator: Optional[torch.Generator], seg: Dict,
     """Stage 4: per-pixel FALKON classifiers of the segmentation head (split
     over ``mesh``'s devices with one)."""
     dev = _entry_device(device, mesh)
-    clock = _StageClock(dev, timings)
+    clock = _StageClock(dev, timings, output_dir)
     rng = np.random.default_rng(seed)
     stats_seg = _head_stats(seg, rng, cfg.pos_fraction_feat_stats, dev)
-    t0 = clock.start()
-    seg_falkon = _minibootstrap(seg, dev, stats_seg, cfg.segm_m, cfg.segm_sigma, cfg.segm_lam,
-                                cfg, generator, mesh)
-    _write_result(output_dir, "Online Segmentation training time: {} \n".format(
-        clock.done("segm_falkon", t0)))
+    with clock.stage("segm_falkon", "Online Segmentation training time: {} \n"):
+        seg_falkon = _minibootstrap(seg, dev, stats_seg, cfg.segm_m, cfg.segm_sigma,
+                                    cfg.segm_lam, cfg, generator, mesh)
     return OnlineMaskModels(falkon=seg_falkon, stats=stats_seg)
 
 

@@ -6,18 +6,28 @@ device memory (``engine/trainer.py:66,116-133``), ``setup_logger`` with an
 environment dump, and ``result.txt`` as the canonical artifact. This module
 gives the port the same surface, with ``torch.profiler`` traces and ranges
 (``profile_trace``, ``annotate``) in place of ``jax.profiler``'s.
+
+``annotate`` is also the program's span: while a ``torch.profiler`` session
+records in this process, each span is an ``odtpu::<name>`` range on the
+trace's timeline and a record in a bounded buffer (``last_root`` reads it),
+and ``count`` adds to the innermost open span. With no session recording
+both cost one flag check.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import itertools
 import logging
 import os
 import sys
+import threading
 import time
 from collections import defaultdict, deque
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional
+
+from torch.autograd import profiler as _autograd_profiler
 
 
 class Timer:
@@ -174,11 +184,114 @@ def profile_trace(log_dir: Optional[str]):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named range in ``torch.profiler`` traces (``record_function``). An
-    exception raised inside the block goes through."""
-    import torch
+PREFIX = "odtpu::"
+_RECORDS: deque = deque(maxlen=1 << 16)  # closed spans, each after its children
+_ids = itertools.count()
+_local = threading.local()  # the open spans of each thread
 
-    with torch.profiler.record_function(name):
-        yield
+
+def _recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process (a
+    process-wide flag, set in every thread)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    """A closed span: ``parent`` and ``root`` are span indices (``parent``
+    None for a root), times are ``time.perf_counter_ns``, ``counts`` what
+    ``count`` added while it was the innermost open span; ``self_ns`` (set
+    by ``last_root``) is its duration less what its children cover."""
+    index: int
+    name: str
+    parent: Optional[int]
+    root: int
+    start_ns: int
+    end_ns: int
+    counts: Dict[str, int]
+    self_ns: int = 0
+
+
+class _Open:
+    __slots__ = ("index", "name", "parent", "root", "start_ns", "counts")
+
+    def __init__(self, name: str, parent: Optional["_Open"]):
+        self.index = next(_ids)
+        self.name = name
+        self.parent = None if parent is None else parent.index
+        self.root = self.index if parent is None else parent.root
+        self.counts: Dict[str, int] = {}
+        self.start_ns = time.perf_counter_ns()
+
+
+def _stack() -> List[_Open]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class annotate:
+    """Span ``name`` (``with annotate("harvest.load"):``): while a
+    ``torch.profiler`` session records, a ``record_function`` range named
+    ``odtpu::<name>`` (a name that already starts with ``odtpu::`` keeps it)
+    and a ``SpanRecord`` nested under the thread's innermost open span;
+    otherwise nothing. An exception raised inside the block closes the span
+    and goes through."""
+
+    __slots__ = ("name", "_range", "_open")
+
+    def __init__(self, name: str):
+        self.name = name[len(PREFIX):] if name.startswith(PREFIX) else name
+        self._open = None
+
+    def __enter__(self):
+        if not _recording():
+            return self
+        stack = _stack()
+        self._range = _autograd_profiler.record_function(PREFIX + self.name)
+        self._range.__enter__()
+        self._open = _Open(self.name, stack[-1] if stack else None)
+        stack.append(self._open)
+        return self
+
+    def __exit__(self, *exc):
+        o = self._open
+        if o is None:
+            return False
+        end = time.perf_counter_ns()
+        _stack().pop()  # ``with`` blocks close in the order opposite to their opening
+        self._range.__exit__(*exc)
+        self._open = None
+        _RECORDS.append(SpanRecord(o.index, o.name, o.parent, o.root, o.start_ns, end,
+                                   o.counts))
+        return False
+
+
+def count(name: str, n: int = 1):
+    """Adds ``n`` to counter ``name`` of this thread's innermost open span
+    while a profiler session records (nothing otherwise, or with no span
+    open). ``n`` must be a value the host already holds: a count never reads
+    the device."""
+    if not _recording():
+        return
+    stack = _stack()
+    if stack:
+        counts = stack[-1].counts
+        counts[name] = counts.get(name, 0) + n
+
+
+def last_root(name: str) -> List[SpanRecord]:
+    """The last recorded root span named ``name`` and its descendants, in
+    order of start, each with its self time; [] when there is none."""
+    name = name[len(PREFIX):] if name.startswith(PREFIX) else name
+    records = list(_RECORDS)
+    root = next((r for r in reversed(records) if r.parent is None and r.name == name), None)
+    if root is None:
+        return []
+    tree = [r for r in records if r.root == root.index]
+    covered: Dict[int, int] = {}
+    for r in tree:
+        if r.parent is not None:
+            covered[r.parent] = covered.get(r.parent, 0) + r.end_ns - r.start_ns
+    return sorted((r._replace(self_ns=r.end_ns - r.start_ns - covered.get(r.index, 0))
+                   for r in tree), key=lambda r: (r.start_ns, r.index))
