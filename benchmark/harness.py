@@ -3,9 +3,10 @@ the check, and the result line.
 
 Everything a cell is made of is found by name: the configuration's file
 (``configs/<config>.json``, named in ``BENCHMARK.json``), the traffic mix
-(``traffic/<traffic>.json``; its ``kind`` picks the set-up and window in
-``drivers.py``), each per-layer metric's reader (``metrics/<metric>.py``,
-with a ``read(run)`` that returns a number or None) and the cell's limits
+(``traffic/<traffic>.json``), the mix's kind (``kinds/<kind>.py``, which
+makes the set-up, the window, the readers' inputs and the readings
+compared), each per-layer metric's reader (``metrics/<metric>.py``, with a
+``read(run)`` that returns a number or None) and the cell's limits
 (``limits/<cell>.json``).
 """
 
@@ -13,7 +14,6 @@ from __future__ import annotations
 
 import importlib.util
 import json
-import logging
 import math
 import re
 import sys
@@ -21,12 +21,9 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
-from benchmark import drivers, judge, tracing
-from benchmark.reference import forward as ref
-from benchmark.reference import train as ref_train
+from benchmark import tracing
 
 BENCH = Path(__file__).resolve().parent
 
@@ -63,29 +60,24 @@ def metrics_of(spec: Dict, workload: str) -> Tuple[List[Dict], List[Dict]]:
     return e2e, per
 
 
-def reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
-    mod_name = "benchmark_metric_" + re.sub(r"[^0-9A-Za-z_]", "_", name)
-    s = importlib.util.spec_from_file_location(mod_name, path)
+def _module(folder: str, name: str):
+    """``<folder>/<name>.py`` of the benchmark, loaded by its path."""
+    mod_name = f"benchmark_{folder}_" + re.sub(r"[^0-9A-Za-z_]", "_", name)
+    s = importlib.util.spec_from_file_location(mod_name, BENCH / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(s)
     s.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
-# ---------------------------------------------------------------- the check
+def reader(name: str):
+    return _module("metrics", name).read
 
-def check(setup: drivers.Setup, out: Dict) -> Dict[str, float]:
-    """The numbers compared for this run (see ``judge.py``)."""
-    seed, dev, cfg, mix = setup.seed, setup.dev, setup.cfg, setup.mix
-    rng = np.random.default_rng(drivers.derive(seed, "check"))
-    p = out["products"]
-    pools = ref_train.pools_of(p["state"])
-    prog = ref.models_of(p["online"])
-    del p["online"]
-    refm = judge.reference_models(pools, cfg["train"], drivers.derive(seed, "train", p["round"]),
-                                  dev)
-    return judge.teach_readings(setup.w, setup.teach, mix, cfg["train"], pools, p["batches"],
-                                prog, refm, rng, dev)
+
+def kind_of(name: str):
+    """The module of a traffic mix's ``kind``: ``KERNELS``, ``setup``,
+    ``window``, ``run_fields``, ``extra``, ``check`` and ``control`` (see
+    ``README.md``)."""
+    return _module("kinds", name)
 
 
 def limits_of(workload: str) -> Dict[str, float]:
@@ -101,14 +93,6 @@ def device_info(dev: torch.device, peak: int) -> Dict:
     return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": int(peak)}
 
 
-def pool_rows(state) -> Dict[str, int]:
-    """Valid rows of the pools the counts of the training need (a host read
-    after the window)."""
-    return {"coxy": int(state.det_coxy.counts.sum()),
-            "rpn_pos": 0 if state.rpn_pos is None else int(state.rpn_pos.counts.sum()),
-            "det_neg_fill": [int(c) for c in state.det_neg.counts.tolist()]}
-
-
 def run_cell(spec: Dict, workload: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, overrides: Optional[Dict] = None) -> Tuple[Dict, List[str]]:
     """-> (the result line's object, the lines of numbers compared)."""
@@ -118,19 +102,17 @@ def run_cell(spec: Dict, workload: str, seed: int, seconds: float, trace: bool, 
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    # the pools' saturation is recorded in the result (``extra``), not logged
-    logging.getLogger("online_detection_tpu_torch.device_pipeline").setLevel(logging.ERROR)
-    setup = drivers.Setup(cfg, mix, seed, dev)
-    kind = mix["kind"]
-    out = drivers.DRIVERS[kind](setup, seconds, trace)
+    kind = kind_of(mix["kind"])
+    setup = kind.setup(cfg, mix, seed, dev)
+    out = kind.window(setup, seconds, trace)
     log(f"set-up {out['t_first'] - t_start:.1f} s, window {out['window_s']:.1f} s, "
         f"{out['units']} units")
     e2e_defs, per_defs = metrics_of(spec, workload)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    metrics, extra = {}, {}
+    metrics = {}
     if not trace:
         vals = dict(out["e2e"], setup_s=out["t_first"] - t_start)
-        for m in e2e_defs:  # ``teach_s.icwt30`` is ``teach_s``, reported in its own cell
+        for m in e2e_defs:  # ``<quantity>.<suffix>`` is ``<quantity>``, reported in its own cell
             metrics[m["name"]] = {"value": vals[m["name"].split(".")[0]], "unit": m["unit"]}
     red = None
     if trace:
@@ -141,18 +123,17 @@ def run_cell(spec: Dict, workload: str, seed: int, seconds: float, trace: bool, 
         run_dir.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(run_dir / "trace.json.gz"))
         log(f"trace reduced and written in {time.time() - t_red:.1f} s")
-        run = {"cell": workload, "kind": kind, "cfg": cfg, "mix": mix, "trace": red,
+        run = {"cell": workload, "kind": mix["kind"], "cfg": cfg, "mix": mix, "trace": red,
                "records": out["records"], "traced_units": len(out["traced"]),
-               "pools": pool_rows(out["products"]["state"])}
+               **kind.run_fields(setup, out)}
         for m in per_defs:
             v = reader(m["name"])(run)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    extra["pool_fill"] = pool_rows(out["products"]["state"])["det_neg_fill"]
-    extra["truncation"] = out["records"][-1]["truncation"]
+    extra = kind.extra(setup, out)
     units = out["units"]
     t_check = time.time()
-    readings = check(setup, out)
+    readings = kind.check(setup, out)
     del out
     log(f"check in {time.time() - t_check:.1f} s")
     limits = limits_of(workload)

@@ -69,10 +69,10 @@ def main(argv=None) -> int:
         return fail(f"needs {chips} CUDA card(s); torch.cuda.is_available() is "
                     f"{torch.cuda.is_available()}, {torch.cuda.device_count()} found", 3)
     sys.path.insert(0, str(ROOT))
-    from benchmark.harness import run_cell
+    from benchmark.harness import cell_spec, kind_of, run_cell
     from online_detection_tpu_torch.ops import _build
 
-    _build.build_all(["gaussian_mmv", "stem_pool", "roi_align", "roi_align_fused2"])
+    _build.build_all(kind_of(cell_spec(from_bench, args.workload)[2]["kind"]).KERNELS)
     result, lines = run_cell(from_bench, args.workload, args.seed, args.seconds,
                              bool(args.trace), "cuda", T_START)
     bad = loaded_forbidden()

@@ -6,25 +6,28 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import drivers, judge
-from benchmark.harness import cell_spec
+from benchmark import judge
+from benchmark.drivers import derive
+from benchmark.harness import cell_spec, kind_of
 from benchmark.reference import forward as ref
 from benchmark.reference import train as ref_train
 from benchmark.tests.conftest import tiny
+
+teach = kind_of("teach")
 
 
 def _setup(spec, workload, seed=11):
     _, cfg, mix = cell_spec(spec, workload)
     for k, v in tiny(spec, workload).items():
         (cfg if k in cfg else mix)[k] = v
-    return drivers.Setup(cfg, mix, seed, "cpu")
+    return teach.Setup(cfg, mix, seed, "cpu")
 
 
 def test_training_matches_the_program(spec):
     s = _setup(spec, "ycbv.teach")
     state, online, _ = s.round(0, keep_state=True)
     pools = ref_train.pools_of(state)
-    refm = judge.reference_models(pools, s.cfg["train"], drivers.derive(s.seed, "train", 0), "cpu")
+    refm = judge.reference_models(pools, s.cfg["train"], derive(s.seed, "train", 0), "cpu")
     gaps = judge.models_gap(ref.models_of(online), refm,
                             judge.probes(pools, s.cfg["train"], np.random.default_rng(0), 8))
     assert gaps["head_gap_max"] < 1e-4 and gaps["rls_gap"] < 1e-3
@@ -35,7 +38,7 @@ def test_negative_pools_where_the_reference_puts_them(spec):
     from the boxes, and each row lies at rounding from the reference's
     feature of a row its class may take from its image."""
     s = _setup(spec, "ycbv.teach")
-    with drivers.HarvestCapture() as cap:
+    with teach.HarvestCapture() as cap:
         state, _, _ = s.round(0, keep_state=True)
     layout = judge.neg_layout(cap.batches, len(s.teach), s.cfg["train"])
     assert judge.neg_count_off(layout, state.det_neg.counts) == 0

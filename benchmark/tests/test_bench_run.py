@@ -65,3 +65,12 @@ def test_traced_line_carries_the_per_layer_metrics(spec):
     assert {"teach.mfu.icwt30", "teach.train_s.icwt30"} <= set(last["metrics"])
     assert {"busy_s", "window_s"} <= set(last["device"])
     assert set(last["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_teach_builds_the_four_libraries():
+    """``run.py`` builds the kind's ``KERNELS`` before set-up: for ``teach``
+    the libraries its rounds launch."""
+    from benchmark.harness import kind_of
+
+    assert kind_of("teach").KERNELS == ["gaussian_mmv", "stem_pool", "roi_align",
+                                        "roi_align_fused2"]

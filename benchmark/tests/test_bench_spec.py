@@ -1,4 +1,4 @@
-"""Cells, configurations, traffic mixes, limits and per-layer metrics are
+"""Cells, configurations, traffic mixes, their kinds, limits and per-layer metrics are
 found by name, and BENCHMARK.json keeps to its contract's shape."""
 
 import re
@@ -9,13 +9,16 @@ from benchmark import harness
 from benchmark.tests.conftest import ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+KIND_API = ("setup", "window", "run_fields", "extra", "check", "control")
 
 
 def test_every_cell_finds_its_files(spec):
     for wl in spec["workloads"]:
-        _, cfg, mix = harness.cell_spec(spec, wl["name"])
-        assert mix["kind"] == "teach"
-        assert cfg["train"]["num_classes"] > 0
+        _, _, mix = harness.cell_spec(spec, wl["name"])
+        assert (ROOT / "benchmark" / "kinds" / f"{mix['kind']}.py").is_file()
+        kind = harness.kind_of(mix["kind"])
+        assert all(isinstance(k, str) for k in kind.KERNELS)
+        assert all(callable(getattr(kind, f)) for f in KIND_API)
         limits = harness.limits_of(wl["name"])
         assert limits and all(v >= 0 for v in limits.values())
         assert wl["chips"] == 1
