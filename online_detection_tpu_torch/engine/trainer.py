@@ -29,6 +29,20 @@ gets a zero gradient, so weight decay still moves it, as under optax.
 
 Each step runs in IEEE fp32 (``utils.device.ieee_fp32``), as the JAX
 trainer is f32.
+
+A run can go on over several calls: ``do_train(..., run=SGDRun())`` keeps in
+the ``SGDRun`` what a later call continues from (the iteration, which drives
+the learning rate and the image order, the trained tensors, the optimizer's
+momentum buffers and the host generator of the order and the flips), as
+maskrcnn-benchmark resumes a checkpoint up to ``MAX_ITER``. Two calls that
+carry it compute what one call over all their steps computes.
+
+Spans (``utils/telemetry.py``, recorded only under ``torch.profiler``): one
+root ``sgd`` a call, and a step's ``sgd.batch`` (``host_batch``),
+``sgd.upload``, ``sgd.forward`` (``training_loss``, the counter
+``nms.sweeps`` inside it), ``sgd.backward``, ``sgd.step`` (the clip and the
+optimizer) and ``sgd.loss_read`` (the step's one host read of its loss);
+counters ``sgd.steps`` and ``sgd.gt_masks`` (GT masks uploaded).
 """
 
 from __future__ import annotations
@@ -52,6 +66,13 @@ from online_detection_tpu_torch.models.heads import mask_deconv, mask_pretrained
 from online_detection_tpu_torch.models.rpn import propose, rpn_features, rpn_pretrained
 from online_detection_tpu_torch.ops.roi_align import roi_align
 from online_detection_tpu_torch.utils.device import ieee_fp32, resolve_device
+from online_detection_tpu_torch.utils.telemetry import (
+    MetricLogger,
+    annotate,
+    count,
+    setup_logger,
+    teardown_logger,
+)
 
 CLIP_NORM = 35.0  # batch-of-one SGD stability guard
 
@@ -244,6 +265,34 @@ def sgd_step(opt: torch.optim.SGD, trainable: Sequence[torch.Tensor], lr: float)
     opt.step()
 
 
+class SGDRun:
+    """The state of one SGD run that ``do_train`` hands from call to call:
+    ``iteration`` (the next step's index), the trained ``params`` and the
+    ``trainable`` tensors among them (on the device, no copy between calls),
+    the optimizer ``opt`` (its momentum buffers), and the host generator
+    ``host_rng`` with the image ``order`` drawn from it. Empty until the
+    first call starts the run."""
+
+    def __init__(self):
+        self.iteration = 0
+        self.params: Optional[DetectorParams] = None
+        self.trainable: List[torch.Tensor] = []
+        self.opt: Optional[torch.optim.SGD] = None
+        self.host_rng: Optional[np.random.Generator] = None
+        self.order: Optional[np.ndarray] = None
+
+    @property
+    def started(self) -> bool:
+        return self.params is not None
+
+    def momentum(self) -> List[Optional[torch.Tensor]]:
+        """Each trainable tensor's momentum buffer (None before its first
+        step)."""
+        if self.opt is None:
+            return [None] * len(self.trainable)
+        return [self.opt.state.get(t, {}).get("momentum_buffer") for t in self.trainable]
+
+
 def parse_time_budget(spec: Optional[str]) -> Optional[float]:
     """"XXh:YYm:ZZs" -> seconds (``run_experiment_fine_tuning.py:19``)."""
     if not spec:
@@ -323,9 +372,17 @@ def do_train(
     flip_prob: float = 0.0,
     draws=None,
     device=None,
+    run: Optional[SGDRun] = None,
 ):
     """The SGD loop, one image a step -> (trained params on ``device``,
-    loss history).
+    loss history of this call's steps).
+
+    Steps run from ``run.iteration`` (0 for a new run) up to
+    ``cfg.max_iter``. ``run``, when given, carries the run across calls: an
+    empty ``SGDRun`` is started from ``params`` (its trainable copy, a fresh
+    optimizer, the order drawn), one that a call already started goes on
+    with its own tensors, optimizer and generator, and ``params`` is not
+    read; the returned params are ``run.params``.
 
     ``draws[it]``, when given, holds step ``it``'s four sampler uniforms
     (``training_loss``); otherwise they come from ``generator`` (one of the
@@ -337,23 +394,29 @@ def do_train(
     numpy leaves (``models/weights.py::tree_from_params``); ``val_fn(params,
     it)`` runs every ``val_period`` steps. ``device`` defaults to the card."""
     from online_detection_tpu_torch.models.weights import tree_from_params
-    from online_detection_tpu_torch.utils.telemetry import (
-        MetricLogger,
-        setup_logger,
-        teardown_logger,
-    )
 
     dev = resolve_device(device)
     if generator is None and draws is None:
         raise ValueError("do_train needs a torch.Generator or the draws of every step")
-    if params.box_predictor is None or (with_mask and params.mask_head is None):
+    run = SGDRun() if run is None else run
+    net = run.params if run.started else params
+    if net.box_predictor is None or (with_mask and net.mask_head is None):
         raise ValueError("do_train needs a box predictor, and a mask head with masks")
     ch, cw = canvas_hw
     anchors_np = grid_anchors(ch // 16, cw // 16)
     anchors = torch.from_numpy(anchors_np).to(dev)
-    params, trainable = trainable_copy(params, dev, cfg)
-    opt = torch.optim.SGD(trainable, lr=cfg.base_lr, momentum=cfg.momentum,
-                          weight_decay=cfg.weight_decay)
+    n = len(dataset)
+    if not run.started:
+        run.params, run.trainable = trainable_copy(params, dev, cfg)
+        run.opt = torch.optim.SGD(run.trainable, lr=cfg.base_lr, momentum=cfg.momentum,
+                                  weight_decay=cfg.weight_decay)
+        run.host_rng = np.random.default_rng(0)
+        run.order = run.host_rng.permutation(n)
+    else:
+        for t in run.trainable:
+            t.requires_grad_(True)
+    params, trainable, opt, host_rng, order = (run.params, run.trainable, run.opt,
+                                               run.host_rng, run.order)
     lr_fn = lr_schedule(cfg)
 
     # fresh handlers per run, so that an earlier run's checkpoint_dir stops
@@ -361,48 +424,56 @@ def do_train(
     teardown_logger("online_detection_tpu_torch.trainer")
     logger = setup_logger("online_detection_tpu_torch.trainer", checkpoint_dir)
     meters = MetricLogger()
-    logger.info("start SGD: %d iters over %d images (budget %s)", cfg.max_iter, len(dataset),
-                time_budget)
-    n = len(dataset)
-    host_rng = np.random.default_rng(0)
-    order = host_rng.permutation(n)
+    logger.info("start SGD: iters %d to %d over %d images (budget %s)", run.iteration,
+                cfg.max_iter, n, time_budget)
     from_feat = hasattr(dataset, "load_features")
     t0 = time.time()
     losses_hist = []
     t_iter = time.time()
-    for it in range(cfg.max_iter):
-        host = host_batch(dataset, int(order[it % n]), canvas_hw, min_size, max_size, gt_cap,
-                           anchors_np, with_mask, flip_prob, host_rng, from_feat)
-        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()
-                 if k != "gt_masks"}
-        if with_mask:  # only the valid GTs' masks cross to the device; the rest are zeros
-            gm, g = host["gt_masks"], int(host["gt_valid"].sum())
-            batch["gt_masks"] = torch.zeros(gm.shape, dtype=torch.float32, device=dev)
-            batch["gt_masks"][:g] = torch.from_numpy(gm[:g]).to(dev)
-        uniforms = None
-        if draws is not None:
-            uniforms = [torch.as_tensor(np.array(u, np.float32), device=dev)
-                        for u in draws[it]]
-        with ieee_fp32():
-            loss = training_loss(params, batch, anchors, cfg, with_mask, uniforms, generator)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            sgd_step(opt, trainable, lr_fn(it))
-        losses_hist.append(float(loss.detach()))
-        # the reference's MetricLogger line: ETA, smoothed loss, peak memory
-        meters.update(time=time.time() - t_iter, loss=losses_hist[-1])
-        t_iter = time.time()
-        if it % log_every == 0:
-            logger.info(meters.log_line(it, cfg.max_iter))
-        if checkpoint_period and checkpoint_dir and it > 0 and it % checkpoint_period == 0:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            with open(os.path.join(checkpoint_dir, f"model_{it:07d}.pkl"), "wb") as f:
-                pickle.dump(tree_from_params(params), f)
-        if val_fn and val_period and it > 0 and it % val_period == 0:
-            val_fn(params, it)
-        if time_budget is not None and time.time() - t0 > time_budget:
-            logger.info("time budget reached at iter %d", it)
-            break
+    with annotate("sgd"):
+        for it in range(run.iteration, cfg.max_iter):
+            with annotate("sgd.batch"):
+                host = host_batch(dataset, int(order[it % n]), canvas_hw, min_size, max_size,
+                                   gt_cap, anchors_np, with_mask, flip_prob, host_rng, from_feat)
+            with annotate("sgd.upload"):
+                batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                         for k, v in host.items() if k != "gt_masks"}
+                if with_mask:  # only the valid GTs' masks cross to the device; the rest are zeros
+                    gm, g = host["gt_masks"], int(host["gt_valid"].sum())
+                    batch["gt_masks"] = torch.zeros(gm.shape, dtype=torch.float32, device=dev)
+                    batch["gt_masks"][:g] = torch.from_numpy(gm[:g]).to(dev)
+                    count("sgd.gt_masks", g)
+                uniforms = None
+                if draws is not None:
+                    uniforms = [torch.as_tensor(np.array(u, np.float32), device=dev)
+                                for u in draws[it]]
+            with ieee_fp32():
+                with annotate("sgd.forward"):
+                    loss = training_loss(params, batch, anchors, cfg, with_mask, uniforms,
+                                         generator)
+                with annotate("sgd.backward"):
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                with annotate("sgd.step"):
+                    sgd_step(opt, trainable, lr_fn(it))
+            with annotate("sgd.loss_read"):
+                losses_hist.append(float(loss.detach()))
+            run.iteration = it + 1
+            count("sgd.steps")
+            # the reference's MetricLogger line: ETA, smoothed loss, peak memory
+            meters.update(time=time.time() - t_iter, loss=losses_hist[-1])
+            t_iter = time.time()
+            if it % log_every == 0:
+                logger.info(meters.log_line(it, cfg.max_iter))
+            if checkpoint_period and checkpoint_dir and it > 0 and it % checkpoint_period == 0:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                with open(os.path.join(checkpoint_dir, f"model_{it:07d}.pkl"), "wb") as f:
+                    pickle.dump(tree_from_params(params), f)
+            if val_fn and val_period and it > 0 and it % val_period == 0:
+                val_fn(params, it)
+            if time_budget is not None and time.time() - t0 > time_budget:
+                logger.info("time budget reached at iter %d", it)
+                break
     logger.info("done: %d iters in %.1fs", len(losses_hist), time.time() - t0)
     teardown_logger("online_detection_tpu_torch.trainer")
     opt.zero_grad(set_to_none=True)
