@@ -37,12 +37,25 @@ momentum buffers and the host generator of the order and the flips), as
 maskrcnn-benchmark resumes a checkpoint up to ``MAX_ITER``. Two calls that
 carry it compute what one call over all their steps computes.
 
+Each step's host batch (``host_batch``, numpy) is built one step ahead on
+a worker thread, opened and closed by each ``do_train`` call: once step k
+has its batch, the worker builds step k+1's into pinned memory while the
+main thread uploads and launches step k and waits in its loss read, so the
+card does not idle through the build. The first step of a call is built
+inline. A staged step's flip is drawn from the host generator on the main
+thread when the step is submitted, and the draw is undone if the loop
+leaves without using it, so the generator's sequence is an inline loop's.
+
 Spans (``utils/telemetry.py``, recorded only under ``torch.profiler``): one
-root ``sgd`` a call, and a step's ``sgd.batch`` (``host_batch``),
+root ``sgd`` a call, and a step's ``sgd.batch`` (obtaining the step's
+batch: the wait for the staged one, or its inline build on a call's first
+step; the counter ``sgd.batch_staged``, 1 when the worker built it),
 ``sgd.upload``, ``sgd.forward`` (``training_loss``, the counter
 ``nms.sweeps`` inside it), ``sgd.backward``, ``sgd.step`` (the clip and the
 optimizer) and ``sgd.loss_read`` (the step's one host read of its loss);
-counters ``sgd.steps`` and ``sgd.gt_masks`` (GT masks uploaded).
+counters ``sgd.steps`` and ``sgd.gt_masks`` (GT masks uploaded). The
+worker's build of a staged batch is the root span ``sgd.stage`` of its own
+thread.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ import os
 import pickle
 import re
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -353,6 +367,34 @@ def host_batch(dataset, i, canvas_hw, min_size, max_size, gt_cap, anchors_np, wi
     return batch
 
 
+class _Drawn:
+    """A uniform drawn ahead from the host generator, handed to
+    ``host_batch`` in the generator's place."""
+
+    def __init__(self, u: Optional[float]):
+        self.u = u
+
+    def random(self) -> float:
+        return self.u
+
+
+def _host_tensors(host: Dict[str, np.ndarray],
+                  pin: bool) -> Tuple[Dict[str, torch.Tensor], int]:
+    """``host_batch``'s arrays as CPU tensors, in pinned memory when ``pin``
+    (so that their uploads are asynchronous), with the GT masks cut to the
+    valid ones -> (tensors, the number of valid GTs)."""
+    g = int(host["gt_valid"].sum())
+    out = {}
+    for k, v in host.items():
+        src = torch.from_numpy(np.ascontiguousarray(v[:g] if k == "gt_masks" else v))
+        if pin:  # numpy's copy, not torch's: no intra-op pool in the worker thread
+            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            np.copyto(dst.numpy(), src.numpy())
+            src = dst
+        out[k] = src
+    return out, g
+
+
 def do_train(
     params: DetectorParams,
     dataset,
@@ -427,53 +469,84 @@ def do_train(
     logger.info("start SGD: iters %d to %d over %d images (budget %s)", run.iteration,
                 cfg.max_iter, n, time_budget)
     from_feat = hasattr(dataset, "load_features")
+    pin = dev.type == "cuda"
+    draws_flip = flip_prob > 0 and not from_feat  # as ``host_batch`` draws
+
+    def build(step, rng):
+        return _host_tensors(host_batch(dataset, int(order[step % n]), canvas_hw, min_size,
+                                        max_size, gt_cap, anchors_np, with_mask, flip_prob, rng,
+                                        from_feat), pin)
+
+    def stage(step, rng):
+        with annotate("sgd.stage"):
+            return build(step, rng)
+
     t0 = time.time()
     losses_hist = []
     t_iter = time.time()
-    with annotate("sgd"):
-        for it in range(run.iteration, cfg.max_iter):
-            with annotate("sgd.batch"):
-                host = host_batch(dataset, int(order[it % n]), canvas_hw, min_size, max_size,
-                                   gt_cap, anchors_np, with_mask, flip_prob, host_rng, from_feat)
-            with annotate("sgd.upload"):
-                batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                         for k, v in host.items() if k != "gt_masks"}
-                if with_mask:  # only the valid GTs' masks cross to the device; the rest are zeros
-                    gm, g = host["gt_masks"], int(host["gt_valid"].sum())
-                    batch["gt_masks"] = torch.zeros(gm.shape, dtype=torch.float32, device=dev)
-                    batch["gt_masks"][:g] = torch.from_numpy(gm[:g]).to(dev)
-                    count("sgd.gt_masks", g)
-                uniforms = None
-                if draws is not None:
-                    uniforms = [torch.as_tensor(np.array(u, np.float32), device=dev)
-                                for u in draws[it]]
-            with ieee_fp32():
-                with annotate("sgd.forward"):
-                    loss = training_loss(params, batch, anchors, cfg, with_mask, uniforms,
-                                         generator)
-                with annotate("sgd.backward"):
-                    opt.zero_grad(set_to_none=True)
-                    loss.backward()
-                with annotate("sgd.step"):
-                    sgd_step(opt, trainable, lr_fn(it))
-            with annotate("sgd.loss_read"):
-                losses_hist.append(float(loss.detach()))
-            run.iteration = it + 1
-            count("sgd.steps")
-            # the reference's MetricLogger line: ETA, smoothed loss, peak memory
-            meters.update(time=time.time() - t_iter, loss=losses_hist[-1])
-            t_iter = time.time()
-            if it % log_every == 0:
-                logger.info(meters.log_line(it, cfg.max_iter))
-            if checkpoint_period and checkpoint_dir and it > 0 and it % checkpoint_period == 0:
-                os.makedirs(checkpoint_dir, exist_ok=True)
-                with open(os.path.join(checkpoint_dir, f"model_{it:07d}.pkl"), "wb") as f:
-                    pickle.dump(tree_from_params(params), f)
-            if val_fn and val_period and it > 0 and it % val_period == 0:
-                val_fn(params, it)
-            if time_budget is not None and time.time() - t0 > time_budget:
-                logger.info("time budget reached at iter %d", it)
-                break
+    ahead = None  # (the next step's staged build, host_rng's state before its flip draw)
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="sgd-stage") as worker, \
+            annotate("sgd"):
+        try:
+            for it in range(run.iteration, cfg.max_iter):
+                with annotate("sgd.batch"):
+                    if ahead is None:
+                        host, g = build(it, host_rng)
+                    else:
+                        host, g = ahead[0].result()
+                    count("sgd.batch_staged", int(ahead is not None))
+                    ahead = None
+                # submitted before this step's launches, not after them: the host launches
+                # a step about as fast as the card runs it, so once it is launched little
+                # of the card's work is left to hide the build behind
+                if it + 1 < cfg.max_iter:
+                    state = host_rng.bit_generator.state
+                    u = host_rng.random() if draws_flip else None
+                    ahead = (worker.submit(stage, it + 1, _Drawn(u)), state)
+                with annotate("sgd.upload"):
+                    batch = {k: v.to(dev, non_blocking=True) for k, v in host.items()
+                             if k != "gt_masks"}
+                    if with_mask:  # only the valid GTs' masks cross to the device
+                        batch["gt_masks"] = torch.zeros((gt_cap, ch, cw), dtype=torch.float32,
+                                                        device=dev)
+                        batch["gt_masks"][:g].copy_(host["gt_masks"], non_blocking=True)
+                        count("sgd.gt_masks", g)
+                    uniforms = None
+                    if draws is not None:
+                        uniforms = [torch.as_tensor(np.array(u, np.float32), device=dev)
+                                    for u in draws[it]]
+                with ieee_fp32():
+                    with annotate("sgd.forward"):
+                        loss = training_loss(params, batch, anchors, cfg, with_mask, uniforms,
+                                             generator)
+                    with annotate("sgd.backward"):
+                        opt.zero_grad(set_to_none=True)
+                        loss.backward()
+                    with annotate("sgd.step"):
+                        sgd_step(opt, trainable, lr_fn(it))
+                with annotate("sgd.loss_read"):
+                    losses_hist.append(float(loss.detach()))
+                run.iteration = it + 1
+                count("sgd.steps")
+                # the reference's MetricLogger line: ETA, smoothed loss, peak memory
+                meters.update(time=time.time() - t_iter, loss=losses_hist[-1])
+                t_iter = time.time()
+                if it % log_every == 0:
+                    logger.info(meters.log_line(it, cfg.max_iter))
+                if checkpoint_period and checkpoint_dir and it > 0 \
+                        and it % checkpoint_period == 0:
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    with open(os.path.join(checkpoint_dir, f"model_{it:07d}.pkl"), "wb") as f:
+                        pickle.dump(tree_from_params(params), f)
+                if val_fn and val_period and it > 0 and it % val_period == 0:
+                    val_fn(params, it)
+                if time_budget is not None and time.time() - t0 > time_budget:
+                    logger.info("time budget reached at iter %d", it)
+                    break
+        finally:
+            if ahead is not None:  # a staged step the loop did not use: undo its flip draw
+                ahead[0].cancel()
+                host_rng.bit_generator.state = ahead[1]
     logger.info("done: %d iters in %.1fs", len(losses_hist), time.time() - t0)
     teardown_logger("online_detection_tpu_torch.trainer")
     opt.zero_grad(set_to_none=True)

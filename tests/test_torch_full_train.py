@@ -14,8 +14,16 @@ from a seed.
   tensors as one vector);
 - the resume contract: two calls of 2 steps give the parameters, loss
   history and momentum of one call of 4, bit for bit;
+- the look-ahead: one call of 5 steps (4 batches staged on the worker
+  thread) gives what 5 calls of one step (nothing staged) give, bit for bit,
+  host generator included, with and without flips; a call cut by its time
+  budget, or by a dataset that raises, leaves the host generator where an
+  inline loop of the steps that ran leaves it, raises the dataset's error
+  and leaves no thread behind;
 - the ``sgd`` spans and counters under a profiler, none without one, and
   the same step either way."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -187,6 +195,92 @@ def test_two_calls_of_two_steps_are_one_call_of_four(source):
         assert torch.equal(a, b), path
 
 
+def _run_state(run):
+    return ([t.detach().clone() for t in run.trainable], run.momentum(),
+            run.host_rng.bit_generator.state, run.iteration)
+
+
+def _same_state(a, b):
+    (pa, ma, ra, ia), (pb, mb, rb, ib) = a, b
+    assert ia == ib and ra == rb
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+    assert all(torch.equal(x, y) for x, y in zip(ma, mb))
+
+
+@pytest.mark.parametrize("flip_prob", [0.0, 0.5], ids=["no_flip", "flip"])
+def test_one_call_with_staged_batches_is_calls_of_one_step(flip_prob):
+    """Step k+1's batch is built on the worker while step k runs; a call of
+    one step builds its batch inline. Five steps over four scenes wrap the
+    image order."""
+    params, ds = tiny_params(), scenes()
+    whole = trainer.SGDRun()
+    _, hist = train(params, ds, 5, run=whole, flip_prob=flip_prob)
+    single, single_hist = trainer.SGDRun(), []
+    for steps in range(1, 6):
+        single_hist += train(params, ds, steps, run=single, flip_prob=flip_prob)[1]
+    assert hist == single_hist and len(hist) == 5
+    _same_state(_run_state(whole), _run_state(single))
+    if flip_prob:  # the flips were drawn: the generator moved past the order
+        rng = np.random.default_rng(0)
+        rng.permutation(len(ds))
+        assert rng.bit_generator.state != whole.host_rng.bit_generator.state
+
+
+def test_a_time_budget_break_undoes_the_staged_flip_draw():
+    """With a budget of 0 the call stops after its first step, the second
+    step already staged; the generator stands where one step leaves it, and
+    the run goes on as if never cut."""
+    params, ds = tiny_params(), scenes()
+    threads = threading.active_count()
+    cut = trainer.SGDRun()
+    _, first = train(params, ds, 3, run=cut, flip_prob=0.5, time_budget=0.0)
+    assert len(first) == 1 and threading.active_count() == threads
+    inline = trainer.SGDRun()
+    _, one = train(params, ds, 1, run=inline, flip_prob=0.5)
+    assert first == one
+    _same_state(_run_state(cut), _run_state(inline))
+    _, rest = train(None, ds, 3, run=cut, flip_prob=0.5)
+    _, whole = train(params, ds, 3, run=trainer.SGDRun(), flip_prob=0.5)
+    assert first + rest == whole
+
+
+class _Boom(RuntimeError):
+    pass
+
+
+class _FailingScenes(SceneSet):
+    """Scenes whose ``load_image`` raises on its ``fail_at``-th call."""
+
+    def __init__(self, fail_at, *args):
+        super().__init__(*args)
+        self.fail_at, self.calls, self.error = fail_at, 0, _Boom("no image")
+
+    def load_image(self, i):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise self.error
+        return super().load_image(i)
+
+
+def test_a_dataset_error_on_a_staged_step_comes_out_unchanged():
+    """Step 3's batch (the fourth image loaded, on the worker) raises: the
+    error leaves ``do_train`` as the dataset raised it, after three steps,
+    with the generator where three inline steps leave it and no thread
+    left."""
+    params = tiny_params()
+    ds = _FailingScenes(4, 4, CANVAS, N_CLS, 11, (12, 28), (3, 5), (2, 3), "cpu")
+    threads = threading.active_count()
+    run = trainer.SGDRun()
+    with pytest.raises(_Boom) as caught:
+        train(params, ds, 6, run=run, flip_prob=0.5)
+    assert caught.value is ds.error and ds.calls == 4
+    assert threading.active_count() == threads
+    inline = trainer.SGDRun()
+    for steps in range(1, 4):
+        train(params, scenes(), steps, run=inline, flip_prob=0.5)
+    _same_state(_run_state(run), _run_state(inline))
+
+
 def test_without_a_run_each_call_starts_afresh():
     params, ds = tiny_params(), scenes()
     _, first = train(params, ds, 2)
@@ -202,33 +296,43 @@ def _traced(traced):
     params, ds = tiny_params(), scenes()
     if traced:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            _, hist = train(params, ds, 2, run=run)
+            _, hist = train(params, ds, 3, run=run)
         names = {e.name for e in prof.events()}
     else:
-        _, hist = train(params, ds, 2, run=run)
+        _, hist = train(params, ds, 3, run=run)
         names = set()
     tree = telemetry.last_root("sgd")
+    stages = [r for r in telemetry._RECORDS if r.name == "sgd.stage"]
     telemetry._RECORDS.clear()
-    return hist, [t.detach().clone() for t in run.trainable], tree, names, ds
+    return hist, [t.detach().clone() for t in run.trainable], tree, stages, names, ds
 
 
 def test_sgd_spans_and_counters_under_a_profiler_and_none_without():
-    hist0, params0, tree0, _, _ = _traced(False)
-    assert tree0 == []
-    hist1, params1, tree, names, ds = _traced(True)
+    hist0, params0, tree0, stages0, _, _ = _traced(False)
+    assert tree0 == [] and stages0 == []
+    hist1, params1, tree, stages, names, ds = _traced(True)
     assert hist0 == hist1
     assert all(torch.equal(a, b) for a, b in zip(params0, params1))
 
     root = tree[0]
     assert root.name == "sgd" and root.parent is None
-    assert root.counts == {"sgd.steps": 2}
+    assert root.counts == {"sgd.steps": 3}
     steps = [r.name for r in tree[1:] if r.parent == root.index]
-    assert steps == SPANS * 2
+    assert steps == SPANS * 3
     assert {"odtpu::" + n for n in ["sgd"] + SPANS} <= names
+    # the first step's batch is built inline, the others staged on the worker,
+    # each build a root span of the worker's thread (in the span buffer; the
+    # profiler records ranges on the thread that started it)
+    batches = [r for r in tree if r.name == "sgd.batch"]
+    assert [r.counts for r in batches] == [{"sgd.batch_staged": 0}, {"sgd.batch_staged": 1},
+                                           {"sgd.batch_staged": 1}]
+    assert len(stages) == 2 and all(r.parent is None and r.root == r.index for r in stages)
+    assert all(s.end_ns <= b.end_ns for s, b in zip(stages, batches[1:]))
     uploads = [r for r in tree if r.name == "sgd.upload"]
     order = np.random.default_rng(0).permutation(len(ds))
     assert [r.counts for r in uploads] == [{"sgd.gt_masks": len(ds.boxes[order[i]])}
-                                            for i in range(2)]
+                                            for i in range(3)]
     forwards = [r for r in tree if r.name == "sgd.forward"]
     assert all(r.counts.get("nms.sweeps", 0) >= 1 for r in forwards)
-    assert all(not r.counts for r in tree if r.name not in ("sgd", "sgd.upload", "sgd.forward"))
+    assert all(not r.counts for r in tree
+               if r.name not in ("sgd", "sgd.batch", "sgd.upload", "sgd.forward"))
